@@ -1,0 +1,48 @@
+// CUDA kernel for one physics control step over N envs (Hopper, sm_90a).
+//
+// Replaces add_gym_tpu/physics/pallas_step.py::_control_step_kernel; the
+// math, the buffer layout and what bounds this design are described in
+// control_step.cuh.  One thread per env, 128 threads a block, grid
+// ceil(N / 128); threads past N return at once.
+//
+// Built by hand with nvcc into a shared library with a plain C interface
+// and loaded with ctypes (add_gym_torch/physics/cuda_step.py):
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+//        -Xcompiler -fPIC -o libagt_control_step.so control_step.cu
+// No fast-math: parity of tanh, sqrt and division with the plain version
+// matters more here than their speed.
+#include <cuda_runtime.h>
+
+#include "control_step.cuh"
+
+#define AGT_THREADS 128
+
+__global__ void __launch_bounds__(AGT_THREADS)
+agt_control_step_kernel(AgtModel m, const float* __restrict__ in, float* __restrict__ out, int n) {
+  int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  AgtEnvScratch s;
+  agt_control_step_env(m, s, in, out, n, e);
+}
+
+extern "C" int agt_max_bodies() { return AGT_MAX_BODIES; }
+
+// Launches on `stream` (a cudaStream_t), allocates nothing, does not
+// synchronise.  Returns cudaGetLastError() after the launch (0 = ok).
+extern "C" int agt_control_step(const float* fbuf, const int* ibuf, int nb, int nd, int ncp,
+                                int nsph, int npair, int substeps, const float* in, float* out,
+                                int n, void* stream) {
+  if (n <= 0) return 0;
+  AgtModel m;
+  m.f = fbuf;
+  m.ib = ibuf;
+  m.nb = nb;
+  m.nd = nd;
+  m.ncp = ncp;
+  m.nsph = nsph;
+  m.npair = npair;
+  m.substeps = substeps;
+  dim3 grid((n + AGT_THREADS - 1) / AGT_THREADS);
+  agt_control_step_kernel<<<grid, AGT_THREADS, 0, (cudaStream_t)stream>>>(m, in, out, n);
+  return (int)cudaGetLastError();
+}

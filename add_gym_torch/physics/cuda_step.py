@@ -1,0 +1,218 @@
+"""Physics control step through the hand-written CUDA kernel.
+
+Counterpart of ``add_gym_tpu/physics/pallas_step.py``: :func:`cuda_step`
+has the contract of ``pallas_step`` / ``fused_step`` (state in, state and
+last-substep contact out, ``[N, ...]`` layouts).  For tensors on a CUDA
+device it launches ``agt_control_step_kernel`` (``csrc/control_step.cu``,
+per-env math in ``csrc/control_step.cuh``) and raises if the launch fails;
+for CPU tensors it runs the plain version, ``fused_step.fused_step``.
+
+The kernel is built at first use with ``nvcc`` into a shared library with a
+plain C interface under ``build/add_gym_torch/`` beside the package (the
+file name carries a hash of the sources and flags, so an edit rebuilds),
+and is bound with ``ctypes``.  Model constants travel as two packed device
+buffers (:func:`pack_model`); the per-env state crosses in one env-minor
+``[13 + 4 nd, N]`` block and comes back in one ``[13 + 3 nd + nb, N]``
+block.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from add_gym_torch.physics.engine import EngineParams, SimState
+from add_gym_torch.physics.fused_step import FusedModelConstants, _check_params, fused_step
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "add_gym_torch")
+SOURCES = ("control_step.cu", "control_step.cuh")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# buffer layout: keep in step with the AGT_* constants in control_step.cuh
+HDR, BODY, DOF, PT, SPH, PAIR = 8, 52, 7, 7, 4, 3
+
+_lib = None
+
+
+def _nvcc() -> str:
+    # torch resolves the toolkit from $CUDA_HOME / $CUDA_PATH, nvcc on PATH,
+    # or the default install location
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    nvcc = os.path.join(CUDA_HOME or "", "bin", "nvcc")
+    if not CUDA_HOME or not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    return nvcc
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libagt_control_step_{h.hexdigest()[:16]}.so")
+
+
+def build_library() -> dict:
+    """Compile the kernel library if it is not built yet.
+
+    Returns {"path", "seconds", "log"}; ``log`` holds ptxas's register and
+    spill report of a fresh build.  Raises if nvcc fails.
+    """
+    path = library_path()
+    if os.path.exists(path):
+        return dict(path=path, seconds=0.0, log="")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, "control_step.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, path)
+    return dict(path=path, seconds=seconds, log=proc.stdout + proc.stderr)
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build_library()["path"])
+        lib.agt_control_step.restype = ctypes.c_int
+        lib.agt_control_step.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.agt_max_bodies.restype = ctypes.c_int
+        lib.agt_max_bodies.argtypes = []
+        _lib = lib
+    return _lib
+
+
+def pack_model(fc: FusedModelConstants, params: EngineParams):
+    """Host buffers of the kernel's model constants.
+
+    Returns (fbuf f32, ibuf i32, counts) with counts = (nb, nd, ncp, nsph,
+    npair, substeps); the layout is documented in control_step.cuh.
+    """
+    _check_params(params)
+    nb, nd = fc.nb, fc.nd
+    dt = params.ctrl_dt / params.substeps
+    hdr = np.array([dt, params.max_torque, params.position_limit_margin,
+                    params.max_target_delta, float(params.friction_mu), params.gravity,
+                    0.0, 0.0])
+    body = np.concatenate(
+        [fc.C0.reshape(nb, 9), fc.C1.reshape(nb, 9), fc.C2.reshape(nb, 9), fc.r, fc.axis,
+         fc.IA_A.reshape(nb, 9), fc.IA_B.reshape(nb, 9), fc.mass[:, None]], axis=1,
+    )
+    kp = torch.as_tensor(params.kp).detach().cpu().numpy().astype(np.float64)
+    kv = torch.as_tensor(params.kv).detach().cpu().numpy().astype(np.float64)
+    dof = np.stack([fc.armature, fc.damping, fc.friction, fc.lo, fc.hi, kp, kv], axis=1)
+    k, b, stick = fc.contact_gains(params, dt)
+    pt = np.concatenate(
+        [fc.cp_pos, fc.cp_radius[:, None], k[:, None], b[:, None], stick[:, None]], axis=1
+    )
+    sph = np.concatenate([fc.sc_pos, fc.sc_radius[:, None]], axis=1)
+    pairs = fc.sc_pairs if params.self_collision else fc.sc_pairs[:0]
+    k_sc, b_sc = fc.sc_gains(params, dt)
+    rsum = fc.sc_radius[pairs[:, 0]] + fc.sc_radius[pairs[:, 1]]
+    pair = np.stack([rsum, k_sc[: len(pairs)], b_sc[: len(pairs)]], axis=1)
+    assert body.shape[1] == BODY and dof.shape[1] == DOF and pt.shape[1] == PT
+    fbuf = np.concatenate(
+        [hdr, body.ravel(), dof.ravel(), pt.ravel(), sph.ravel(), pair.ravel()]
+    ).astype(np.float32)
+    cp_start = np.searchsorted(fc.cp_body, np.arange(nb + 1))
+    ibuf = np.concatenate(
+        [fc.parent, cp_start, fc.sc_body, pairs.ravel()]
+    ).astype(np.int32)
+    counts = (nb, nd, len(fc.cp_body), len(fc.sc_body), len(pairs), int(params.substeps))
+    return fbuf, ibuf, counts
+
+
+def _device_model(fc: FusedModelConstants, params: EngineParams, device):
+    """Packed model buffers on ``device``, cached on ``fc`` per params object."""
+    key = ("cuda_pack", torch.device(device))
+    hit = fc._dev.get(key)
+    if hit is None or hit[0] is not params:
+        fbuf, ibuf, counts = pack_model(fc, params)
+        hit = (
+            params,
+            torch.as_tensor(fbuf, device=device),
+            torch.as_tensor(ibuf, device=device),
+            counts,
+        )
+        fc._dev[key] = hit
+    return hit[1:]
+
+
+def pack_state(state: SimState, pd_target):
+    """Env-minor input block [13 + 4 nd, N] (f32, contiguous)."""
+    return torch.cat(
+        [state.root_pos.T, state.root_quat.T, state.root_vel.T, state.root_ang_vel.T,
+         state.dof_pos.T, state.dof_vel.T, state.pd_target.T, pd_target.T], dim=0,
+    ).contiguous()
+
+
+def unpack_state(out, nd: int):
+    """Split the env-minor output block into (SimState, contact [N, nb])."""
+    rows = torch.split(out, [3, 4, 3, 3, nd, nd, nd, out.shape[0] - 13 - 3 * nd], dim=0)
+    rp, rq, rv, ra, q, qd, tgt, contact = (r.T for r in rows)
+    state = SimState(root_pos=rp, root_quat=rq, root_vel=rv, root_ang_vel=ra,
+                     dof_pos=q, dof_vel=qd, pd_target=tgt)
+    return state, contact
+
+
+def launch_control_step(fc: FusedModelConstants, params: EngineParams, inp):
+    """Launch the kernel on an env-minor input block; returns the output block.
+
+    ``inp`` is a contiguous f32 CUDA tensor [13 + 4 nd, N] (see
+    :func:`pack_state`).  Launches on the current stream; raises if the
+    launch fails.  Does not count launches (see :func:`cuda_step`).
+    """
+    if not inp.is_cuda or inp.dtype != torch.float32 or not inp.is_contiguous():
+        raise ValueError("control step kernel takes a contiguous f32 CUDA tensor")
+    nb, nd = fc.nb, fc.nd
+    if inp.shape[0] != 13 + 4 * nd:
+        raise ValueError(f"input block has {inp.shape[0]} rows, expected {13 + 4 * nd}")
+    lib = _library()
+    if nb > lib.agt_max_bodies():
+        raise ValueError(f"model has {nb} bodies; the kernel takes at most {lib.agt_max_bodies()}")
+    n = inp.shape[1]
+    fbuf, ibuf, counts = _device_model(fc, params, inp.device)
+    out = torch.empty((13 + 3 * nd + nb, n), dtype=torch.float32, device=inp.device)
+    with torch.cuda.device(inp.device):
+        stream = torch.cuda.current_stream(inp.device).cuda_stream
+        rc = lib.agt_control_step(
+            fbuf.data_ptr(), ibuf.data_ptr(), *counts, inp.data_ptr(), out.data_ptr(), n, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"agt_control_step launch failed: CUDA error {rc}")
+    return out
+
+
+def cuda_step(fc: FusedModelConstants, params: EngineParams, state: SimState, pd_target):
+    """Control step with the contract of ``fused_step`` / ``pallas_step``.
+
+    CUDA tensors go through the kernel (``cuda_step.launches`` counts each
+    launch); CPU tensors go through the plain version.
+    """
+    if not state.root_pos.is_cuda:
+        return fused_step(fc, params, state, pd_target)
+    out = launch_control_step(fc, params, pack_state(state, pd_target))
+    cuda_step.launches += 1
+    return unpack_state(out, fc.nd)
+
+
+cuda_step.launches = 0

@@ -1,0 +1,108 @@
+"""Where a rollout's time goes on the GPU.
+
+    python -m add_gym_torch.profile_rollout
+
+Builds the slice as ``chip_smoke.py`` does (config ``train``, the
+G1-shaped fixture and a synthetic clip, 4096 envs, the default agent and
+32 steps per rollout), runs one
+warm-up ``rollout_lean``, then one rollout timed with CUDA events and one
+under ``torch.profiler``.  Prints the rollout's wall time, the device time
+summed over all kernels and copies (the device's busy share of the wall
+time), the control-step kernel's share, and the kernels with the most
+device time.  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+
+import torch
+
+from add_gym_torch.builder import build_agent, build_env
+from add_gym_torch.physics import testing as fx
+from add_gym_torch.utils.config import load_config
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NUM_ENVS = 4096
+STEPS = 32
+TOP = 15
+
+
+def _device_rows(prof):
+    """(name, device µs, count) of every device-side op (kernels, copies,
+    memsets); host-side aten ops, which the profiler also charges with
+    their kernels' time, are left out so nothing counts twice."""
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        rows.append((e.key, float(us), e.count))
+    return rows
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_rollout: no CUDA device available", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    fixtures = os.path.join(_ROOT, "build", "add_gym_torch", "fixtures")
+    cfg = load_config("train")
+    cfg["robot"]["asset_path"] = fx.write_g1_fixture(fixtures)
+    cfg["task"]["motion_file"] = fx.write_motion_csv(
+        os.path.join(fixtures, "g1_fixture_clip.motion"), seed=0, num_frames=300)
+    cfg["engine"]["num_envs"] = NUM_ENVS
+    env = build_env(cfg, device="cuda")
+    agent = build_agent(cfg, env)
+    ts = agent.init_train_state()
+    n = NUM_ENVS
+    es = env.reset_where(env.init_state(n), torch.ones(n, dtype=torch.bool, device="cuda"),
+                         ts.sampler)
+    obs = env.compute_obs(es)
+    es, obs, _, _ = agent.rollout_lean(ts, es, obs, STEPS)      # warm-up
+    torch.cuda.synchronize()
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    es, obs, _, _ = agent.rollout_lean(ts, es, obs, STEPS)
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    event_ms = start.elapsed_time(end)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        es, obs, _, _ = agent.rollout_lean(ts, es, obs, STEPS)
+        torch.cuda.synchronize()
+    rows = _device_rows(prof)
+    device_ms = sum(r[1] for r in rows) / 1e3
+    kernel_ms = sum(r[1] for r in rows if "agt_control_step" in r[0]) / 1e3
+    launches = sum(r[2] for r in rows)
+    rows.sort(key=lambda r: -r[1])
+    print(f"device {torch.cuda.get_device_name(0)}; {n} envs x {STEPS} steps")
+    print(f"rollout wall {wall_ms:.3f} ms (host clock), {event_ms:.3f} ms (CUDA events)")
+    print(f"profiled rollout: device busy {device_ms:.3f} ms over {launches} device ops; "
+          f"control-step kernel {kernel_ms:.3f} ms")
+    for key, us, count in rows[: TOP]:
+        print(f"  {us / 1e3:9.3f} ms  {count:6d}x  {key[:100]}")
+    print(json.dumps({
+        "num_envs": n, "steps": STEPS, "rollout_ms_events": event_ms,
+        "rollout_ms_wall": wall_ms, "device_busy_ms": device_ms,
+        # busy share: profiled device time over the unprofiled rollout time
+        "device_busy_share": device_ms / event_ms, "control_step_kernel_ms": kernel_ms,
+        "device_ops": launches,
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

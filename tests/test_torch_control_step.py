@@ -1,0 +1,321 @@
+"""Port parity: the physics control step.
+
+* The port's plain step (``fused_step``) against the JAX Pallas kernel body
+  (``pallas_step(..., interpret=True)``) on the mini biped (N=16, as
+  tests/test_pallas_mini.py runs it), and against JAX ``fused_step`` on
+  the G1-shaped fixture (N=8; the kernel's interpret mode would take tens
+  of minutes there): free fall, ground contact and joint limits.
+* The CUDA kernel's per-env device function (``csrc/control_step.cuh``),
+  built with the host C++ compiler, against the plain step on both
+  fixtures: the kernel's arithmetic, checked without a card.
+* ``cuda_step`` on CPU tensors is the plain step; ``build_env`` refuses a
+  CUDA device where there is none.
+
+The kernel itself runs against the plain step on a card in
+tests/test_torch_cuda.py.
+
+One-step tolerances are ``physics.testing.step_tolerances()`` (positions
+1e-5; velocities atol 1e-4; contact atol 5e-2 N; see its docstring for
+why).  Chained steps compound op-order differences through stiff contacts
+and are held to rtol = atol = 1e-3 over 20 steps (measured: ~2e-5 on the
+G1-shaped fixture in ground contact).
+"""
+
+import ctypes
+import dataclasses
+import shutil
+import subprocess
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from add_gym_tpu.physics import engine as jeng
+from add_gym_tpu.physics.fused_step import FusedModelConstants as JaxFMC
+from add_gym_tpu.physics.fused_step import fused_step as jax_fused_step
+from add_gym_tpu.physics.model import build_physics_model as jax_build_model
+from add_gym_tpu.physics.pallas_step import pallas_step
+from add_gym_torch.physics import cuda_step as cs
+from add_gym_torch.physics import testing as fx
+from add_gym_torch.physics.engine import EngineParams, SimState
+from add_gym_torch.physics.fused_step import FusedModelConstants, fused_step
+from add_gym_torch.physics.model import build_physics_model
+from add_gym_torch.robot import build_pd_gains
+
+torch.set_num_threads(2)
+
+CHAIN_TOL = dict(rtol=1e-3, atol=1e-3)
+
+
+def _setup(path, g1):
+    """(model, port constants, port params, JAX params, JAX step, JAX
+    constants) for one fixture; the
+    JAX step is jitted once: the Pallas kernel body in interpret mode on
+    the mini biped, the JAX fused step on the G1-shaped fixture."""
+    tmodel = build_physics_model(path)
+    jmodel = jax_build_model(path)
+    if g1:
+        kp, kv = build_pd_gains(tmodel)
+    else:
+        kp = np.full(tmodel.nd, 50.0, np.float32)
+        kv = np.full(tmodel.nd, 5.0, np.float32)
+    tp = EngineParams(kp=torch.as_tensor(kp), kv=torch.as_tensor(kv))
+    jp = jeng.EngineParams(kp=jnp.asarray(kp), kv=jnp.asarray(kv))
+    jfc = JaxFMC(jmodel)
+    if g1:
+        jstep = jax.jit(lambda p, s, t: jax_fused_step(jfc, p, s, t))
+    else:
+        jstep = jax.jit(lambda p, s, t: pallas_step(jfc, p, s, t, interpret=True))
+    return tmodel, FusedModelConstants(tmodel), tp, jp, jstep, jfc
+
+
+@pytest.fixture(scope="module")
+def mini(tmp_path_factory):
+    return _setup(fx.write_mini_mjcf(str(tmp_path_factory.mktemp("mini"))), g1=False)
+
+
+@pytest.fixture(scope="module")
+def g1(tmp_path_factory):
+    return _setup(fx.write_g1_fixture(str(tmp_path_factory.mktemp("g1"))), g1=True)
+
+
+def _scenario(model, n, kind, height):
+    """(fields, command) for one test scenario, from a numpy seed."""
+    fields, cmd = fx.random_sim_state(model, n, seed=3, height=height)
+    lo, hi = model.dof_limit[:, 0], model.dof_limit[:, 1]
+    if kind == "free_fall":
+        fields["root_pos"][:, 2] += 2.0
+    elif kind == "joint_limits":
+        # joints start 0.02 rad past alternate limits and move outward, so
+        # the limit springs act (each substep clamps q back into range);
+        # the command points past the limit
+        side = np.where(np.arange(model.nd) % 2 == 0, 1.0, -1.0)
+        edge = np.where(side > 0, hi, lo)
+        fields["dof_pos"][:] = edge + 0.02 * side
+        fields["dof_vel"][:] = 3.0 * side
+        fields["pd_target"][:] = edge
+        cmd[:] = edge + 0.3 * side
+    return fields, cmd
+
+
+def _both_states(fields):
+    t = SimState(**{k: torch.as_tensor(v) for k, v in fields.items()})
+    j = jeng.SimState(**{k: jnp.asarray(v) for k, v in fields.items()})
+    return t, j
+
+
+def _assert_step_close(t_state, t_contact, j_state, j_contact, tol=None):
+    """Every output close; ``tol`` is one rtol/atol for all, or None for
+    the per-output one-step tolerances."""
+    tols = fx.step_tolerances() if tol is None else dict.fromkeys(fx.step_tolerances(), tol)
+    for f in fx.STATE_FIELDS:
+        np.testing.assert_allclose(getattr(t_state, f).numpy(), np.asarray(getattr(j_state, f)),
+                                   err_msg=f, **tols[f])
+    np.testing.assert_allclose(t_contact.numpy(), np.asarray(j_contact), err_msg="contact",
+                               **tols["contact"])
+
+
+SCENARIOS = ["free_fall", "ground_contact", "joint_limits"]
+
+
+@pytest.mark.parametrize("kind", SCENARIOS)
+def test_mini_step_matches_pallas_kernel_body(mini, kind):
+    model, fc, tp, jp, jstep, _ = mini
+    fields, cmd = _scenario(model, 16, kind, height=0.6)
+    ts, js = _both_states(fields)
+    j_state, j_contact = jstep(jp, js, jnp.asarray(cmd))
+    t_state, t_contact = fused_step(fc, tp, ts, torch.as_tensor(cmd))
+    _assert_step_close(t_state, t_contact, j_state, j_contact)
+    if kind == "free_fall":
+        assert not np.asarray(j_contact).any()
+    elif kind == "ground_contact":
+        assert np.asarray(j_contact).any()
+
+
+@pytest.mark.parametrize("kind", SCENARIOS)
+def test_g1_fixture_step_matches_jax_fused(g1, kind):
+    model, fc, tp, jp, jstep, _ = g1
+    fields, cmd = _scenario(model, 8, kind, height=fx.G1_PELVIS_HEIGHT)
+    ts, js = _both_states(fields)
+    j_state, j_contact = jstep(jp, js, jnp.asarray(cmd))
+    t_state, t_contact = fused_step(fc, tp, ts, torch.as_tensor(cmd))
+    _assert_step_close(t_state, t_contact, j_state, j_contact)
+    if kind == "free_fall":
+        assert not np.asarray(j_contact).any()
+    elif kind == "ground_contact":
+        assert (np.asarray(j_contact) > 0).any()
+
+
+def _chain(fixture, fields, cmd, in_contact, steps=20):
+    model, fc, tp, jp, jstep, _ = fixture
+    ts, js = _both_states(fields)
+    tcmd, jcmd = torch.as_tensor(cmd), jnp.asarray(cmd)
+    for _ in range(steps):
+        js, jc = jstep(jp, js, jcmd)
+        ts, tc = fused_step(fc, tp, ts, tcmd)
+    assert (np.asarray(jc) > 0).any() == in_contact
+    _assert_step_close(ts, tc, js, jc, CHAIN_TOL)
+
+
+def test_mini_chained_steps_match_pallas_kernel_body(mini):
+    """20 control steps in the air: PD-driven legs swinging into their
+    limits.  (Standing on its two hinged legs the mini biped is chaotic:
+    the JAX package's own fused step and Pallas kernel body drift apart by
+    ~6e-2 within 20 steps, so no chained comparison in contact can hold.)"""
+    model = mini[0]
+    fields, cmd = fx.random_sim_state(model, 16, seed=4, height=3.0)
+    cmd = 2.0 * cmd                                 # some commands past the limits
+    _chain(mini, fields, cmd, in_contact=False)
+
+
+def test_g1_fixture_chained_steps_match_jax_fused(g1):
+    fields, cmd = fx.random_sim_state(g1[0], 8, seed=5, height=fx.G1_PELVIS_HEIGHT)
+    _chain(g1, fields, cmd, in_contact=True)
+
+
+def test_held_self_collision_forces_match_jax(g1):
+    """The held self-collision wrenches of a crossed-legs state equal the
+    JAX package's, are non-zero, and change the step when switched off."""
+    from add_gym_tpu.physics.fused_step import compute_sc_ext as jax_sc_ext
+    from add_gym_torch.physics.fused_step import compute_sc_ext
+
+    model, fc, tp, jp, _, jfc = g1
+    fields, cmd = fx.random_sim_state(model, 8, seed=6, height=fx.G1_PELVIS_HEIGHT)
+    fields["dof_pos"][:, :] = 0.0
+    # hip roll inward on both sides brings the legs together
+    for j, name in enumerate(model.joint_names):
+        if "hip_roll" in name:
+            fields["dof_pos"][:, j] = -0.35 if name.startswith("left") else 0.35
+    ts, js = _both_states(fields)
+    dt = tp.ctrl_dt / tp.substeps
+    n_t, f_t = compute_sc_ext(fc, tp, dt, ts)
+    want = jax_sc_ext(jfc, jp, dt, js)
+    zero = np.zeros((3, 8), np.float32)
+    for b in range(model.nb):
+        n_j, f_j = want.get(b, (zero, zero))
+        np.testing.assert_allclose(n_t[b].numpy(), np.asarray(n_j), rtol=1e-5, atol=1e-4,
+                                   err_msg=f"torque on body {b}")
+        np.testing.assert_allclose(f_t[b].numpy(), np.asarray(f_j), rtol=1e-5, atol=1e-3,
+                                   err_msg=f"force on body {b}")
+    assert float(f_t.abs().max()) > 1.0
+
+    on, _ = fused_step(fc, tp, ts, torch.as_tensor(cmd))
+    off, _ = fused_step(fc, dataclasses.replace(tp, self_collision=False), ts, torch.as_tensor(cmd))
+    assert not torch.allclose(on.dof_vel, off.dof_vel)
+
+
+def test_cuda_step_on_cpu_is_the_plain_step(mini):
+    model, fc, tp = mini[:3]
+    fields, cmd = fx.random_sim_state(model, 16, seed=8, height=0.6)
+    ts = SimState(**{k: torch.as_tensor(v) for k, v in fields.items()})
+    before = cs.cuda_step.launches
+    s1, c1 = cs.cuda_step(fc, tp, ts, torch.as_tensor(cmd))
+    s2, c2 = fused_step(fc, tp, ts, torch.as_tensor(cmd))
+    assert cs.cuda_step.launches == before        # no kernel launch on the CPU
+    for f in fx.STATE_FIELDS:
+        assert torch.equal(getattr(s1, f), getattr(s2, f)), f
+    assert torch.equal(c1, c2)
+
+
+def test_kernel_refuses_cpu_tensors(mini):
+    model, fc, tp = mini[:3]
+    fields, cmd = fx.random_sim_state(model, 4, seed=9, height=0.6)
+    ts = SimState(**{k: torch.as_tensor(v) for k, v in fields.items()})
+    with pytest.raises(ValueError, match="CUDA"):
+        cs.launch_control_step(fc, tp, cs.pack_state(ts, torch.as_tensor(cmd)))
+
+
+def test_build_env_refuses_missing_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from add_gym_torch.builder import build_env
+    from add_gym_torch.utils.config import load_config
+
+    cfg = load_config("train")
+    cfg["robot"]["asset_path"] = fx.write_g1_fixture(str(tmp_path))
+    cfg["task"]["motion_file"] = fx.write_motion_csv(str(tmp_path / "c.motion"), seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_env(cfg, device="cuda")
+    cfg["engine"]["kernel"] = "on"
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        build_env(cfg, device="cpu")
+
+
+# ---------------------------------------------- the kernel's device function
+
+_SHIM = r"""
+#include "control_step.cuh"
+extern "C" void agt_control_step_host(const float* f, const int* ib, int nb, int nd, int ncp,
+                                      int nsph, int npair, int substeps, const float* in,
+                                      float* out, int n) {
+  AgtModel m{f, ib, nb, nd, ncp, nsph, npair, substeps};
+  AgtEnvScratch s;
+  for (int e = 0; e < n; ++e) agt_control_step_env(m, s, in, out, n, e);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_kernel(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    d = tmp_path_factory.mktemp("host_kernel")
+    src = d / "shim.cpp"
+    src.write_text(_SHIM)
+    lib_path = d / "libhost_control_step.so"
+    subprocess.run(
+        [cxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-I", cs.CSRC_DIR, "-o", str(lib_path),
+         str(src)],
+        check=True, capture_output=True,
+    )
+    lib = ctypes.CDLL(str(lib_path))
+    lib.agt_control_step_host.restype = None
+    lib.agt_control_step_host.argtypes = (
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+    )
+    return lib
+
+
+@pytest.mark.parametrize("kind", ["ground_contact", "joint_limits"])
+@pytest.mark.parametrize("which", ["mini", "g1"])
+def test_device_function_matches_plain_step(host_kernel, mini, g1, which, kind):
+    model, fc, tp = (mini if which == "mini" else g1)[:3]
+    height = 0.6 if which == "mini" else fx.G1_PELVIS_HEIGHT
+    n = 37                                            # not a multiple of anything
+    fields, cmd = _scenario(model, n, kind, height)
+    state = SimState(**{k: torch.as_tensor(v) for k, v in fields.items()})
+    cmd = torch.as_tensor(cmd)
+    fbuf, ibuf, counts = cs.pack_model(fc, tp)
+    for _ in range(4):
+        inp = cs.pack_state(state, cmd)
+        out = torch.empty((13 + 3 * model.nd + model.nb, n))
+        host_kernel.agt_control_step_host(
+            fbuf.ctypes.data, ibuf.ctypes.data, *counts, inp.data_ptr(), out.data_ptr(), n)
+        k_state, k_contact = cs.unpack_state(out, model.nd)
+        p_state, p_contact = fused_step(fc, tp, state, cmd)
+        for f, tol in fx.step_tolerances().items():
+            got = k_contact if f == "contact" else getattr(k_state, f)
+            want = p_contact if f == "contact" else getattr(p_state, f)
+            torch.testing.assert_close(got, want, **tol, msg=lambda m: f"{f}: {m}")
+        if kind == "ground_contact":
+            assert (p_contact > 0).any()
+        state = p_state
+
+
+def test_pack_model_layout(g1):
+    model, fc, tp = g1[:3]
+    fbuf, ibuf, counts = cs.pack_model(fc, tp)
+    nb, nd, ncp, nsph, npair, substeps = counts
+    assert (nb, nd, ncp, substeps) == (model.nb, model.nd, model.ncp, 4)
+    assert fbuf.size == cs.HDR + nb * cs.BODY + nd * cs.DOF + ncp * cs.PT + nsph * cs.SPH + npair * cs.PAIR
+    assert ibuf.size == nb + (nb + 1) + nsph + 2 * npair
+    cp_start = ibuf[nb: 2 * nb + 1]
+    assert cp_start[0] == 0 and cp_start[-1] == ncp and (np.diff(cp_start) >= 0).all()
+    dof_start = cs.HDR + nb * cs.BODY
+    kp = fbuf[dof_start + 5: dof_start + nd * cs.DOF: cs.DOF]
+    np.testing.assert_array_equal(kp, tp.kp.numpy())
+    no_sc = cs.pack_model(fc, dataclasses.replace(tp, self_collision=False))[2]
+    assert no_sc[4] == 0

@@ -1,0 +1,108 @@
+"""The CUDA control-step kernel on a card (marker ``cuda``; skips without one).
+
+Run on a machine with an NVIDIA GPU and no JAX from the repository root:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest`` because tests/conftest.py sets up JAX.)  This file imports
+nothing of JAX.  Tolerances are ``physics.testing.step_tolerances()`` for
+one step, and rtol = atol = 1e-3 for a 4-step rollout.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from add_gym_torch.builder import build_agent, build_env
+from add_gym_torch.physics import cuda_step as cs
+from add_gym_torch.physics import testing as fx
+from add_gym_torch.physics.engine import EngineParams, SimState
+from add_gym_torch.physics.fused_step import FusedModelConstants, fused_step
+from add_gym_torch.physics.model import build_physics_model
+from add_gym_torch.robot import build_pd_gains
+from add_gym_torch.utils.config import load_config
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def paths(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    d = str(tmp_path_factory.mktemp("cuda"))
+    return dict(
+        mini=fx.write_mini_mjcf(d), g1=fx.write_g1_fixture(d),
+        clip=fx.write_motion_csv(d + "/clip.motion", seed=0, num_frames=120),
+    )
+
+
+def _model(path, g1):
+    model = build_physics_model(path)
+    if g1:
+        kp, kv = build_pd_gains(model)
+    else:
+        kp = np.full(model.nd, 50.0, np.float32)
+        kv = np.full(model.nd, 5.0, np.float32)
+    params = EngineParams(kp=torch.as_tensor(kp, device="cuda"),
+                          kv=torch.as_tensor(kv, device="cuda"))
+    return model, FusedModelConstants(model), params
+
+
+@pytest.mark.parametrize("which", ["mini", "g1"])
+def test_kernel_matches_plain_step(paths, which):
+    model, fc, params = _model(paths[which], which == "g1")
+    height = fx.G1_PELVIS_HEIGHT if which == "g1" else 0.6
+    n = 1000                                        # a ragged last block
+    fields, cmd = fx.random_sim_state(model, n, seed=11, height=height)
+    state = SimState(**{k: torch.as_tensor(v, device="cuda") for k, v in fields.items()})
+    cmd = torch.as_tensor(cmd, device="cuda")
+    before = cs.cuda_step.launches
+    k_state, k_contact = cs.cuda_step(fc, params, state, cmd)
+    p_state, p_contact = fused_step(fc, params, state, cmd)
+    torch.cuda.synchronize()
+    assert cs.cuda_step.launches == before + 1
+    assert k_contact.shape == (n, model.nb) and k_contact.is_cuda
+    assert (p_contact > 0).any()
+    for f, tol in fx.step_tolerances().items():
+        got = k_contact if f == "contact" else getattr(k_state, f)
+        want = p_contact if f == "contact" else getattr(p_state, f)
+        torch.testing.assert_close(got, want, **tol, msg=lambda m: f"{f}: {m}")
+
+
+def test_launch_refuses_a_malformed_block(paths):
+    model, fc, params = _model(paths["mini"], False)
+    bad = torch.zeros((5, 8), device="cuda")
+    with pytest.raises(ValueError, match="rows"):
+        cs.launch_control_step(fc, params, bad)
+    with pytest.raises(ValueError, match="contiguous f32"):
+        cs.launch_control_step(fc, params, torch.zeros((13 + 4 * model.nd, 8), device="cuda").T)
+
+
+def test_rollout_through_kernel_matches_plain_rollout(paths):
+    """A 4-step f32 rollout at 32 envs: ``kernel: on`` against ``off``."""
+    n, steps = 32, 4
+    trajs = []
+    for kernel in ("on", "off"):
+        cfg = load_config("train")
+        cfg["robot"]["asset_path"] = paths["g1"]
+        cfg["task"]["motion_file"] = paths["clip"]
+        cfg["engine"]["kernel"] = kernel
+        cfg["agent"]["mixed_precision"] = False
+        for k in ("actor_net", "critic_net", "disc_net"):
+            cfg["agent"][k] = "fc_2layers_64units"
+        env = build_env(cfg, device="cuda")
+        assert env.kernel == (kernel == "on")
+        agent = build_agent(cfg, env)
+        ts = agent.init_train_state()
+        g = torch.Generator(device="cuda").manual_seed(1)
+        es = env.reset_where(env.init_state(n), torch.ones(n, dtype=torch.bool, device="cuda"),
+                             ts.sampler, generator=g)
+        draws = agent.sample_rollout_draws(ts, n, steps, g)
+        before = cs.cuda_step.launches
+        _, obs, traj, _ = agent.rollout_lean(ts, es, env.compute_obs(es), steps, draws=draws)
+        assert cs.cuda_step.launches - before == (steps if kernel == "on" else 0)
+        assert torch.isfinite(obs).all()
+        trajs.append(traj)
+    for k in trajs[0]:
+        torch.testing.assert_close(trajs[0][k].float(), trajs[1][k].float(), rtol=1e-3, atol=1e-3,
+                                   msg=lambda m: f"{k}: {m}")

@@ -1,0 +1,38 @@
+"""The port stands alone: importing every module of ``add_gym_torch`` and
+``chip_smoke`` loads neither JAX (nor flax / optax) nor the JAX package.
+
+Runs in a fresh interpreter, since this test process has JAX loaded.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import add_gym_torch
+names = ["add_gym_torch"] + [
+    m.name for m in pkgutil.walk_packages(add_gym_torch.__path__, "add_gym_torch.")
+]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "add_gym_tpu"))
+print(json.dumps({"modules": len(names), "bad": bad}))
+"""
+
+
+def test_port_imports_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["modules"] >= 25, out
+    assert out["bad"] == [], f"the port imported {out['bad']}"
