@@ -2,7 +2,9 @@
 
 Counterpart of ``add_gym_tpu/builder.py``.  Both entry points take an
 explicit ``device`` (default ``"cuda"``); asking for CUDA where there is
-none raises instead of running on the CPU.
+none raises instead of running on the CPU.  ``engine.kernel: auto`` keeps
+the control-step kernel on a CUDA device with domain randomization on too:
+per-env parameters go to the kernel's per-env variant.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from typing import Dict
 
 import torch
 
+from add_gym_torch.envs.domain_rand import DRConfig
 from add_gym_torch.envs.imitation import ImitationEnv, TaskConfig
 from add_gym_torch.kinematics.char_model import load_char_model
 from add_gym_torch.learning.add_agent import ADDAgent, AgentConfig
@@ -121,12 +124,16 @@ def build_env(cfg: Dict, device="cuda") -> ImitationEnv:
         sampler_num_segments=int(sampler_cfg.get("num_segments", 20)),
         sampler_temperature=sampler_cfg.get("temperature"),
     )
-    if (engine_cfg.get("domain_rand") or {}).get("enabled", False):
-        raise NotImplementedError("engine.domain_rand is not ported yet")
+    # DRConfig holds the defaults of the keys the block leaves out
+    dr = DRConfig(**{
+        k: bool(v) if k == "enabled" else tuple(float(x) for x in v)
+        for k, v in (engine_cfg.get("domain_rand") or {}).items()
+    })
     return ImitationEnv(
         model, motion, params, task,
         kernel=_use_kernel(engine_cfg.get("kernel", "auto"), device),
         device=device,
+        dr=dr,
     )
 
 

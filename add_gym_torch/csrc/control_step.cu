@@ -3,7 +3,10 @@
 // Replaces add_gym_tpu/physics/pallas_step.py::_control_step_kernel; the
 // math, the buffer layout and what bounds this design are described in
 // control_step.cuh.  One thread per env, 128 threads a block, grid
-// ceil(N / 128); threads past N return at once.
+// ceil(N / 128); threads past N return at once.  Two entry points, one per
+// variant of the per-env function: agt_control_step (shared gains) and
+// agt_control_step_dr (per-env gains, friction and mass scale in the input
+// block).
 //
 // Built by hand with nvcc into a shared library with a plain C interface
 // and loaded with ctypes (add_gym_torch/physics/cuda_step.py):
@@ -17,21 +20,21 @@
 
 #define AGT_THREADS 128
 
+template <bool kPerEnv>
 __global__ void __launch_bounds__(AGT_THREADS)
 agt_control_step_kernel(AgtModel m, const float* __restrict__ in, float* __restrict__ out, int n) {
   int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
   AgtEnvScratch s;
-  agt_control_step_env(m, s, in, out, n, e);
+  agt_control_step_env<kPerEnv>(m, s, in, out, n, e);
 }
 
 extern "C" int agt_max_bodies() { return AGT_MAX_BODIES; }
 
-// Launches on `stream` (a cudaStream_t), allocates nothing, does not
-// synchronise.  Returns cudaGetLastError() after the launch (0 = ok).
-extern "C" int agt_control_step(const float* fbuf, const int* ibuf, int nb, int nd, int ncp,
-                                int nsph, int npair, int substeps, const float* in, float* out,
-                                int n, void* stream) {
+template <bool kPerEnv>
+static int agt_launch(const float* fbuf, const int* ibuf, int nb, int nd, int ncp, int nsph,
+                      int npair, int substeps, const float* in, float* out, int n,
+                      void* stream) {
   if (n <= 0) return 0;
   AgtModel m;
   m.f = fbuf;
@@ -43,6 +46,21 @@ extern "C" int agt_control_step(const float* fbuf, const int* ibuf, int nb, int 
   m.npair = npair;
   m.substeps = substeps;
   dim3 grid((n + AGT_THREADS - 1) / AGT_THREADS);
-  agt_control_step_kernel<<<grid, AGT_THREADS, 0, (cudaStream_t)stream>>>(m, in, out, n);
+  agt_control_step_kernel<kPerEnv><<<grid, AGT_THREADS, 0, (cudaStream_t)stream>>>(m, in, out, n);
   return (int)cudaGetLastError();
+}
+
+// Launch on `stream` (a cudaStream_t), allocate nothing, do not
+// synchronise.  Return cudaGetLastError() after the launch (0 = ok).
+// `in` has 13 + 4*nd rows (main) or 15 + 6*nd rows (per-env variant).
+extern "C" int agt_control_step(const float* fbuf, const int* ibuf, int nb, int nd, int ncp,
+                                int nsph, int npair, int substeps, const float* in, float* out,
+                                int n, void* stream) {
+  return agt_launch<false>(fbuf, ibuf, nb, nd, ncp, nsph, npair, substeps, in, out, n, stream);
+}
+
+extern "C" int agt_control_step_dr(const float* fbuf, const int* ibuf, int nb, int nd, int ncp,
+                                   int nsph, int npair, int substeps, const float* in,
+                                   float* out, int n, void* stream) {
+  return agt_launch<true>(fbuf, ibuf, nb, nd, ncp, nsph, npair, substeps, in, out, n, stream);
 }

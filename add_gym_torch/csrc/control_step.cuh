@@ -1,8 +1,18 @@
 // One physics control step for one env: the per-env body of the CUDA
 // kernel in control_step.cu.
 //
-// Replaces add_gym_tpu/physics/pallas_step.py::_control_step_kernel (main
-// variant: self-collision on, no per-env mass scale, no narrowphase rows).
+// Replaces add_gym_tpu/physics/pallas_step.py::_control_step_kernel in two
+// variants (held narrowphase rows are not ported):
+//   * main: shared PD gains and friction from the model buffer, no mass
+//     scale;
+//   * per-env (domain randomization, the Pallas kernel's per-env kp/kv/mu
+//     blocks with `use_ms`): kp[nd], kv[nd], mu and the mass scale ms come
+//     from env-minor rows after the state in the input block.  ms
+//     multiplies the ground contact (reported and applied), the summed
+//     ground + held self-collision wrenches, the articulated-inertia blocks
+//     and the bias forces, as fused_step._substep_core does.
+// Both variants are one template (AgtEnvParams<kPerEnv>); the main one
+// reads its gains and friction from the model buffer and scales nothing.
 // Its plain version is add_gym_torch/physics/fused_step.py::fused_step;
 // the two compute the same function:
 //   1. PD target: clamp to the joint limits +- position_limit_margin, then
@@ -29,7 +39,8 @@
 // 11 KB for 30 bodies) is far beyond 255 registers, so it lives in local
 // memory and streams through L1/L2.  The kernel is therefore bound by that
 // local-memory traffic and by f32 arithmetic, not by its state I/O
-// (13 + 4*nd floats in, 13 + 3*nd + nb out per env).  A cooperative layout
+// (13 + 4*nd floats in, plus 2*nd + 2 in the per-env variant, 13 + 3*nd +
+// nb out per env).  A cooperative layout
 // (a warp per env, blocks in shared memory) is the way past that bound.
 //
 // AGT_HD marks the functions for both compilers: nvcc builds them into
@@ -106,6 +117,21 @@ AGT_HD float dot3(const float* a, const float* b) { return a[0] * b[0] + a[1] * 
 AGT_HD float clampf(float x, float lo, float hi) { return fminf(fmaxf(x, lo), hi); }
 
 // ------------------------------------------------------------- per-env work
+
+// Gains, friction and mass scale of one env.  kPerEnv = false: kp/kv are
+// the shared values in the model buffer's dof rows (stride AGT_DOF) and mu
+// the header's; nothing is scaled by mass.  kPerEnv = true: kp/kv are
+// env-minor input rows (stride n) and mu, ms this env's values.
+template <bool kPerEnv>
+struct AgtEnvParams {
+  const float* kp;  // kp of dof j at kp[j * stride]
+  const float* kv;
+  int n;            // env count: the row stride of the per-env variant
+  float mu, ms;
+  AGT_HD float kp_of(int j) const { return kp[j * (kPerEnv ? n : AGT_DOF)]; }
+  AGT_HD float kv_of(int j) const { return kv[j * (kPerEnv ? n : AGT_DOF)]; }
+  AGT_HD float scale(float x) const { return kPerEnv ? x * ms : x; }
+};
 
 struct AgtEnvScratch {
   float W[AGT_MAX_BODIES][9];    // body -> world rotation
@@ -237,10 +263,11 @@ AGT_HD void agt_solve6(const float* A, const float* B, const float* D, const flo
 }
 
 // One substep; writes the per-body contact force to `contact` when non-null.
-AGT_HD void agt_substep(const AgtModel& m, AgtEnvScratch& s, float* rp, float* rq, float* rv,
-                        float* ra, float* contact, int n) {
+template <bool kPerEnv>
+AGT_HD void agt_substep(const AgtModel& m, const AgtEnvParams<kPerEnv>& P, AgtEnvScratch& s,
+                        float* rp, float* rq, float* rv, float* ra, float* contact, int n) {
   const float* F = m.f;
-  const float dt = F[0], max_torque = F[1], mu = F[4], gravity = F[5];
+  const float dt = F[0], max_torque = F[1], mu = P.mu, gravity = F[5];
   const float* dofc = F + AGT_HDR + m.nb * AGT_BODY;
   const float* ptc = dofc + m.nd * AGT_DOF;
   const int* parent = m.ib;
@@ -271,8 +298,11 @@ AGT_HD void agt_substep(const AgtModel& m, AgtEnvScratch& s, float* rp, float* r
       for (int k = 0; k < 3; ++k) { fw[k] += f[k]; nw[k] += nn[k]; }
       csum += fn;
     }
-    if (contact) contact[i * n] = csum;
-    for (int k = 0; k < 3; ++k) { nw[k] += s.scn[i][k]; fw[k] += s.scf[i][k]; }
+    if (contact) contact[i * n] = P.scale(csum);
+    for (int k = 0; k < 3; ++k) {
+      nw[k] = P.scale(nw[k] + s.scn[i][k]);
+      fw[k] = P.scale(fw[k] + s.scf[i][k]);
+    }
 
     float wb[3], vb[3];
     mtv33(W, s.om[i], wb);
@@ -289,9 +319,9 @@ AGT_HD void agt_substep(const AgtModel& m, AgtEnvScratch& s, float* rp, float* r
     const float* IB = bc + 42;
     const float mass = bc[51];
     for (int k = 0; k < 9; ++k) {
-      s.A[i][k] = IA[k];
-      s.B[i][k] = IB[k];
-      s.D[i][k] = (k % 4 == 0) ? mass : 0.0f;
+      s.A[i][k] = P.scale(IA[k]);
+      s.B[i][k] = P.scale(IB[k]);
+      s.D[i][k] = (k % 4 == 0) ? P.scale(mass) : 0.0f;
     }
     float ivn[3], ivf[3], t1[3], t2[3], en[3], ef[3];
     mv33(IA, wb, t1);
@@ -302,8 +332,9 @@ AGT_HD void agt_substep(const AgtModel& m, AgtEnvScratch& s, float* rp, float* r
     float bn[3], bf[3];
     cross3(wb, ivn, t1);
     cross3(vb, ivf, t2);
-    for (int k = 0; k < 3; ++k) bn[k] = t1[k] + t2[k];
+    for (int k = 0; k < 3; ++k) bn[k] = P.scale(t1[k] + t2[k]);
     cross3(wb, ivf, bf);
+    for (int k = 0; k < 3; ++k) bf[k] = P.scale(bf[k]);
     mtv33(W, nw, en);
     mtv33(W, fw, ef);
     for (int k = 0; k < 3; ++k) { s.pn[i][k] = bn[k] - en[k]; s.pf[i][k] = bf[k] - ef[k]; }
@@ -313,7 +344,7 @@ AGT_HD void agt_substep(const AgtModel& m, AgtEnvScratch& s, float* rp, float* r
   for (int j = 0; j < nd; ++j) {
     const float* dc = dofc + j * AGT_DOF;
     float q = s.q[j], qd = s.qd[j];
-    float tpd = clampf(dc[5] * (s.tgt[j] - q) - dc[6] * qd, -max_torque, max_torque);
+    float tpd = clampf(P.kp_of(j) * (s.tgt[j] - q) - P.kv_of(j) * qd, -max_torque, max_torque);
     s.tau[j] = tpd - dc[1] * qd - dc[2] * tanhf(qd / 0.05f)
                + 400.0f * fmaxf(dc[3] - q, 0.0f) - 400.0f * fmaxf(q - dc[4], 0.0f);
   }
@@ -330,7 +361,7 @@ AGT_HD void agt_substep(const AgtModel& m, AgtEnvScratch& s, float* rp, float* r
     float* Ub = s.Ub[i];
     mv33(s.A[i], ax, Ut);
     mtv33(s.B[i], ax, Ub);
-    float d = dot3(Ut, ax) + dc[0] + dt * (dc[1] + dc[6]);
+    float d = dot3(Ut, ax) + dc[0] + dt * (dc[1] + P.kv_of(i - 1));
     float dinv = 1.0f / d;
     float u = s.tau[i - 1] - dot3(ax, s.pn[i]);
     s.dinv[i] = dinv;
@@ -456,9 +487,11 @@ AGT_HD void agt_substep(const AgtModel& m, AgtEnvScratch& s, float* rp, float* r
 
 // One control step for env e.  `in` rows (env-minor, N = n):
 //   root_pos 3, root_quat 4, root_vel 3, root_ang_vel 3, q nd, qd nd,
-//   prev_target nd, command nd
+//   prev_target nd, command nd; the per-env variant then kp nd, kv nd,
+//   mu 1, ms 1
 // `out` rows: root_pos 3, root_quat 4, root_vel 3, root_ang_vel 3, q nd,
 //   qd nd, applied target nd, contact nb
+template <bool kPerEnv = false>
 AGT_HD void agt_control_step_env(const AgtModel& m, AgtEnvScratch& s, const float* in,
                                  float* out, int n, int e) {
   const float* F = m.f;
@@ -467,6 +500,20 @@ AGT_HD void agt_control_step_env(const AgtModel& m, AgtEnvScratch& s, const floa
   const float* dofc = F + AGT_HDR + m.nb * AGT_BODY;
   in += e;
   out += e;
+  AgtEnvParams<kPerEnv> P;
+  P.n = n;
+  if (kPerEnv) {
+    const float* pe = in + (13 + 4 * nd) * n;
+    P.kp = pe;
+    P.kv = pe + nd * n;
+    P.mu = pe[2 * nd * n];
+    P.ms = pe[(2 * nd + 1) * n];
+  } else {
+    P.kp = dofc + 5;
+    P.kv = dofc + 6;
+    P.mu = F[4];
+    P.ms = 1.0f;
+  }
   float rp[3], rq[4], rv[3], ra[3];
   for (int k = 0; k < 3; ++k) {
     rp[k] = in[k * n];
@@ -496,7 +543,7 @@ AGT_HD void agt_control_step_env(const AgtModel& m, AgtEnvScratch& s, const floa
 
   float* contact = out + (13 + 3 * nd) * n;
   for (int st = 0; st < m.substeps; ++st)
-    agt_substep(m, s, rp, rq, rv, ra, st == m.substeps - 1 ? contact : (float*)0, n);
+    agt_substep(m, P, s, rp, rq, rv, ra, st == m.substeps - 1 ? contact : (float*)0, n);
 
   for (int k = 0; k < 3; ++k) {
     out[k * n] = rp[k];

@@ -2,9 +2,11 @@
 
 Counterpart of ``add_gym_tpu/envs/imitation.py``: one ``EnvState`` of
 ``[N, ...]`` tensors and the functions the train rollout runs on it:
-``reset_where`` (masked reset to sampled reference poses), ``compute_obs``
-and ``rollout_step_cached`` (physics step, reward, done, masked reset and
-both observation passes, with the incremental motion-row window).
+``reset_where`` (masked reset to sampled reference poses, with fresh
+domain-randomization draws when it is on), ``compute_obs`` and
+``rollout_step_cached`` (physics step with the per-env parameters and the
+latency blend of domain randomization, reward, done, masked reset and both
+observation passes, with the incremental motion-row window).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import numpy as np
 import torch
 
 from add_gym_torch.envs import obs as obs_mod
-from add_gym_torch.envs.domain_rand import init_dr_state
+from add_gym_torch.envs.domain_rand import DRConfig, init_dr_state, sample_dr
 from add_gym_torch.envs.done import DoneFlags, compute_done
 from add_gym_torch.envs.reward import compute_reward
 from add_gym_torch.learning import sampler as sampler_mod
@@ -117,12 +119,14 @@ class ImitationEnv:
         task: TaskConfig = TaskConfig(),
         kernel: bool = False,
         device="cpu",
+        dr: DRConfig = DRConfig(),
     ):
         self.device = torch.device(device)
         self.model = model
         self.motion = motion
         self.params = engine_params
         self.task = task
+        self.dr = dr
         self.ctrl_dt = engine_params.ctrl_dt
         self.kernel = kernel
         self._fc = FusedModelConstants(model)
@@ -203,6 +207,31 @@ class ImitationEnv:
     def motion_times(self, state: EnvState):
         return state.time + state.motion_offsets
 
+    def _effective_params(self, state: EnvState) -> EngineParams:
+        """The engine params with the per-env domain-randomization scales."""
+        if not self.dr.enabled:
+            return self.params
+        dr = state.dr
+        p = replace(
+            self.params,
+            kp=self.params.kp[None, :] * dr["kp_scale"][:, None],
+            kv=self.params.kv[None, :] * dr["kv_scale"][:, None],
+            friction_mu=self.params.friction_mu * dr["friction_mu"],
+        )
+        if self.dr.mass_enabled:
+            p = replace(p, mass_scale=p.mass_scale * dr["mass_scale"])
+        return p
+
+    def _physics(self, state: EnvState, pd_target):
+        """Control step with the latency blend and per-env params of domain
+        randomization."""
+        if self.dr.enabled and self.dr.action_latency_range[1] > 0:
+            # first-order actuation delay: blend the fresh command with the
+            # previously applied target
+            a = state.dr["latency"][:, None]
+            pd_target = (1.0 - a) * pd_target + a * state.sim.pd_target
+        return self._step_fn(self._effective_params(state), state.sim, pd_target)
+
     def _window_offsets(self, dtype=torch.float32):
         """Time offsets of the motion-row window relative to the current
         motion time: H history rows (oldest -> newest) then K target rows."""
@@ -249,8 +278,9 @@ class ImitationEnv:
         ``aux`` is the [N, H+K, R] motion-row cache aligned to the pre-step
         motion time (:meth:`motion_aux`); advancing one control step shifts
         it by one row and gathers one fresh row per env.  ``ids_f`` /
-        ``times_f`` / ``dr`` are the reset draws for envs that finish this
-        step.  Returns ``(state3, obs_after, aux3, out)``.
+        ``times_f`` / ``dr`` (a dict of [N] tensors, see
+        ``domain_rand.sample_dr``) are the reset draws for envs that finish
+        this step.  Returns ``(state3, obs_after, aux3, out)``.
         """
         task = self.task
         N = state.time.shape[0]
@@ -263,7 +293,7 @@ class ImitationEnv:
             )
 
         # --- physics --------------------------------------------------
-        sim, body_contact = self._step_fn(self.params, state.sim, pd_target)
+        sim, body_contact = self._physics(state, pd_target)
         time = state.time + dt
         state2 = self._push_history(replace(state, sim=sim, time=time))
         mt = time + state.motion_offsets
@@ -467,20 +497,28 @@ class ImitationEnv:
         ids = self.motion.sample_motions(n, generator)
         return ids, self._sample_times(ids, sampler_state, generator)
 
+    def sample_dr(self, n: int, generator=None):
+        """Domain-randomization draws for ``n`` resets (identity when off)."""
+        if not self.dr.enabled:
+            return init_dr_state(n, self.device)
+        return sample_dr(self.dr, n, generator, self.device)
+
     def reset_where(self, state: EnvState, mask, sampler_state, generator=None, draws=None):
         """Masked reset: fresh episodes where ``mask`` is True.
 
-        Teleports to a sampled reference pose and prefills the disc history
-        from the demo.  ``draws = (ids, times)`` replaces the sampling
-        (the parity tests inject the JAX package's draws).
+        Teleports to a sampled reference pose, prefills the disc history
+        from the demo and draws the domain randomization anew.  ``draws =
+        (ids, times)`` or ``(ids, times, dr)`` replaces the sampling (the
+        parity tests inject the JAX package's draws); without ``dr`` it is
+        drawn from ``generator``.
         """
         N = state.time.shape[0]
         if draws is None:
             draws = self.sample_resets(N, sampler_state, generator)
-        ids, times = draws
+        ids, times = draws[:2]
+        dr = draws[2] if len(draws) > 2 else self.sample_dr(N, generator)
         ids = to_device(ids, self.device, torch.int64)
         times = to_device(times, self.device, torch.float32)
-        fresh = self._fresh_state(
-            ids, times, self._demo_window(ids, times), init_dr_state(N, self.device)
-        )
+        dr = {k: to_device(v, self.device, torch.float32) for k, v in dr.items()}
+        fresh = self._fresh_state(ids, times, self._demo_window(ids, times), dr)
         return _where_env(mask, fresh, state)

@@ -6,14 +6,19 @@ last-substep contact out, ``[N, ...]`` layouts).  For tensors on a CUDA
 device it launches ``agt_control_step_kernel`` (``csrc/control_step.cu``,
 per-env math in ``csrc/control_step.cuh``) and raises if the launch fails;
 for CPU tensors it runs the plain version, ``fused_step.fused_step``.
+Parameters with per-env leaves (domain randomization: ``kp``/``kv``
+``[N, nd]``, ``friction_mu`` ``[N]``, a mass scale) go to the kernel's
+per-env variant, the rest to its main variant; each counts its launches.
 
 The kernel is built at first use with ``nvcc`` into a shared library with a
 plain C interface under ``build/add_gym_torch/`` beside the package (the
 file name carries a hash of the sources and flags, so an edit rebuilds),
 and is bound with ``ctypes``.  Model constants travel as two packed device
-buffers (:func:`pack_model`); the per-env state crosses in one env-minor
-``[13 + 4 nd, N]`` block and comes back in one ``[13 + 3 nd + nb, N]``
-block.
+buffers (:func:`pack_model`), cached per model and shared parameters;
+the per-env state crosses in one env-minor ``[13 + 4 nd, N]`` block (the
+per-env variant appends ``kp``/``kv`` ``[nd]``, ``mu`` and ``ms`` rows:
+``[15 + 6 nd, N]``, so per-env values never enter the cached buffers) and
+comes back in one ``[13 + 3 nd + nb, N]`` block.
 """
 
 from __future__ import annotations
@@ -27,8 +32,8 @@ import time
 import numpy as np
 import torch
 
-from add_gym_torch.physics.engine import EngineParams, SimState
-from add_gym_torch.physics.fused_step import FusedModelConstants, _check_params, fused_step
+from add_gym_torch.physics.engine import EngineParams, SimState, is_per_env, mass_scale_or_none
+from add_gym_torch.physics.fused_step import FusedModelConstants, fused_step
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -89,36 +94,43 @@ def _library():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build_library()["path"])
-        lib.agt_control_step.restype = ctypes.c_int
-        lib.agt_control_step.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_void_p,
-        ]
+        for fn in (lib.agt_control_step, lib.agt_control_step_dr):
+            fn.restype = ctypes.c_int
+            fn.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_void_p,
+            ]
         lib.agt_max_bodies.restype = ctypes.c_int
         lib.agt_max_bodies.argtypes = []
         _lib = lib
     return _lib
 
 
-def pack_model(fc: FusedModelConstants, params: EngineParams):
+def pack_model(fc: FusedModelConstants, params: EngineParams, per_env: bool | None = None):
     """Host buffers of the kernel's model constants.
 
     Returns (fbuf f32, ibuf i32, counts) with counts = (nb, nd, ncp, nsph,
-    npair, substeps); the layout is documented in control_step.cuh.
+    npair, substeps); the layout is documented in control_step.cuh.  For
+    the per-env variant (``per_env``, by default ``is_per_env(params)``)
+    the shared kp/kv/mu slots hold 0: it reads them from its input block.
     """
-    _check_params(params)
     nb, nd = fc.nb, fc.nd
     dt = params.ctrl_dt / params.substeps
+    if per_env is None:
+        per_env = is_per_env(params)
+    mu = 0.0 if per_env else float(params.friction_mu)
     hdr = np.array([dt, params.max_torque, params.position_limit_margin,
-                    params.max_target_delta, float(params.friction_mu), params.gravity,
-                    0.0, 0.0])
+                    params.max_target_delta, mu, params.gravity, 0.0, 0.0])
     body = np.concatenate(
         [fc.C0.reshape(nb, 9), fc.C1.reshape(nb, 9), fc.C2.reshape(nb, 9), fc.r, fc.axis,
          fc.IA_A.reshape(nb, 9), fc.IA_B.reshape(nb, 9), fc.mass[:, None]], axis=1,
     )
-    kp = torch.as_tensor(params.kp).detach().cpu().numpy().astype(np.float64)
-    kv = torch.as_tensor(params.kv).detach().cpu().numpy().astype(np.float64)
+    if per_env:
+        kp = kv = np.zeros(nd)
+    else:
+        kp = torch.as_tensor(params.kp).detach().cpu().numpy().astype(np.float64)
+        kv = torch.as_tensor(params.kv).detach().cpu().numpy().astype(np.float64)
     dof = np.stack([fc.armature, fc.damping, fc.friction, fc.lo, fc.hi, kp, kv], axis=1)
     k, b, stick = fc.contact_gains(params, dt)
     pt = np.concatenate(
@@ -141,14 +153,28 @@ def pack_model(fc: FusedModelConstants, params: EngineParams):
     return fbuf, ibuf, counts
 
 
-def _device_model(fc: FusedModelConstants, params: EngineParams, device):
-    """Packed model buffers on ``device``, cached on ``fc`` per params object."""
+def _model_tag(params: EngineParams, per_env: bool):
+    """What the packed buffers depend on: the scalar fields, and for shared
+    parameters the gain tensors (by identity) and the friction."""
+    scalars = (params.ctrl_dt, params.substeps, params.max_torque, params.max_target_delta,
+               params.position_limit_margin, params.contact_timeconst,
+               params.contact_dampratio, params.gravity, params.self_collision)
+    if per_env:
+        return scalars, None, None, None
+    return scalars, params.kp, params.kv, float(params.friction_mu)
+
+
+def _device_model(fc: FusedModelConstants, params: EngineParams, device, per_env: bool):
+    """Packed model buffers on ``device``, cached on ``fc``.  Per-env
+    parameters, new at every step, share one entry per scalar fields."""
     key = ("cuda_pack", torch.device(device))
+    tag = _model_tag(params, per_env)
     hit = fc._dev.get(key)
-    if hit is None or hit[0] is not params:
-        fbuf, ibuf, counts = pack_model(fc, params)
+    if (hit is None or hit[0][0] != tag[0] or hit[0][1] is not tag[1]
+            or hit[0][2] is not tag[2] or hit[0][3] != tag[3]):
+        fbuf, ibuf, counts = pack_model(fc, params, per_env)
         hit = (
-            params,
+            tag,
             torch.as_tensor(fbuf, device=device),
             torch.as_tensor(ibuf, device=device),
             counts,
@@ -157,12 +183,35 @@ def _device_model(fc: FusedModelConstants, params: EngineParams, device):
     return hit[1:]
 
 
-def pack_state(state: SimState, pd_target):
-    """Env-minor input block [13 + 4 nd, N] (f32, contiguous)."""
-    return torch.cat(
-        [state.root_pos.T, state.root_quat.T, state.root_vel.T, state.root_ang_vel.T,
-         state.dof_pos.T, state.dof_vel.T, state.pd_target.T, pd_target.T], dim=0,
-    ).contiguous()
+def per_env_rows(params: EngineParams, n: int, nd: int, device):
+    """The per-env variant's extra input rows [2 nd + 2, N]: kp, kv, mu, ms
+    (shared values broadcast over the envs, ms = 1 without a mass scale)."""
+    def rows(x, k):
+        x = torch.as_tensor(x, dtype=torch.float32, device=device)
+        if x.ndim == 2:                      # per-env gains [N, nd]
+            return x.T
+        return x.reshape(k, -1).expand(k, n)  # [k] / [N] / scalar
+
+    ms = mass_scale_or_none(params)
+    return torch.cat([
+        rows(params.kp, nd), rows(params.kv, nd), rows(params.friction_mu, 1),
+        rows(1.0 if ms is None else ms, 1),
+    ], dim=0)
+
+
+def pack_state(state: SimState, pd_target, params: EngineParams | None = None,
+               per_env: bool | None = None):
+    """Env-minor input block (f32, contiguous): [13 + 4 nd, N], or for the
+    per-env variant [15 + 6 nd, N] with ``params``' rows appended.
+    ``per_env`` defaults to ``is_per_env(params)``."""
+    rows = [state.root_pos.T, state.root_quat.T, state.root_vel.T, state.root_ang_vel.T,
+            state.dof_pos.T, state.dof_vel.T, state.pd_target.T, pd_target.T]
+    if per_env is None:
+        per_env = params is not None and is_per_env(params)
+    if per_env:
+        n, nd = state.dof_pos.shape
+        rows.append(per_env_rows(params, n, nd, state.root_pos.device))
+    return torch.cat(rows, dim=0).contiguous()
 
 
 def unpack_state(out, nd: int):
@@ -174,45 +223,59 @@ def unpack_state(out, nd: int):
     return state, contact
 
 
-def launch_control_step(fc: FusedModelConstants, params: EngineParams, inp):
+def launch_control_step(fc: FusedModelConstants, params: EngineParams, inp,
+                        per_env: bool | None = None):
     """Launch the kernel on an env-minor input block; returns the output block.
 
-    ``inp`` is a contiguous f32 CUDA tensor [13 + 4 nd, N] (see
-    :func:`pack_state`).  Launches on the current stream; raises if the
-    launch fails.  Does not count launches (see :func:`cuda_step`).
+    ``per_env`` (by default ``is_per_env(params)``) picks the variant:
+    ``inp`` is a contiguous f32 CUDA tensor (see :func:`pack_state`) of
+    [13 + 4 nd, N] rows for the main variant, [15 + 6 nd, N] for the
+    per-env one.  Launches on the current stream; raises if the launch
+    fails.  Does not count launches (see :func:`cuda_step`).
     """
     if not inp.is_cuda or inp.dtype != torch.float32 or not inp.is_contiguous():
         raise ValueError("control step kernel takes a contiguous f32 CUDA tensor")
     nb, nd = fc.nb, fc.nd
-    if inp.shape[0] != 13 + 4 * nd:
-        raise ValueError(f"input block has {inp.shape[0]} rows, expected {13 + 4 * nd}")
+    if per_env is None:
+        per_env = is_per_env(params)
+    want = 15 + 6 * nd if per_env else 13 + 4 * nd
+    if inp.shape[0] != want:
+        raise ValueError(f"input block has {inp.shape[0]} rows, expected {want}")
     lib = _library()
+    launch = lib.agt_control_step_dr if per_env else lib.agt_control_step
     if nb > lib.agt_max_bodies():
         raise ValueError(f"model has {nb} bodies; the kernel takes at most {lib.agt_max_bodies()}")
     n = inp.shape[1]
-    fbuf, ibuf, counts = _device_model(fc, params, inp.device)
+    fbuf, ibuf, counts = _device_model(fc, params, inp.device, per_env)
     out = torch.empty((13 + 3 * nd + nb, n), dtype=torch.float32, device=inp.device)
     with torch.cuda.device(inp.device):
         stream = torch.cuda.current_stream(inp.device).cuda_stream
-        rc = lib.agt_control_step(
+        rc = launch(
             fbuf.data_ptr(), ibuf.data_ptr(), *counts, inp.data_ptr(), out.data_ptr(), n, stream,
         )
     if rc != 0:
-        raise RuntimeError(f"agt_control_step launch failed: CUDA error {rc}")
+        raise RuntimeError(f"control step kernel launch failed: CUDA error {rc}")
     return out
 
 
 def cuda_step(fc: FusedModelConstants, params: EngineParams, state: SimState, pd_target):
     """Control step with the contract of ``fused_step`` / ``pallas_step``.
 
-    CUDA tensors go through the kernel (``cuda_step.launches`` counts each
-    launch); CPU tensors go through the plain version.
+    CUDA tensors go through the kernel: shared parameters through the main
+    variant (``cuda_step.launches`` counts its launches), per-env ones
+    through the per-env variant (``cuda_step.dr_launches``).  CPU tensors
+    go through the plain version.
     """
     if not state.root_pos.is_cuda:
         return fused_step(fc, params, state, pd_target)
-    out = launch_control_step(fc, params, pack_state(state, pd_target))
-    cuda_step.launches += 1
+    per_env = is_per_env(params)
+    out = launch_control_step(fc, params, pack_state(state, pd_target, params, per_env), per_env)
+    if per_env:
+        cuda_step.dr_launches += 1
+    else:
+        cuda_step.launches += 1
     return unpack_state(out, fc.nd)
 
 
 cuda_step.launches = 0
+cuda_step.dr_launches = 0

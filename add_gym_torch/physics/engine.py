@@ -42,13 +42,16 @@ class SimState:
 class EngineParams:
     """Control/contact parameters.
 
-    ``kp``/``kv`` are shared ``[nd]`` gains and ``friction_mu`` is a
-    scalar (per-env values, and the mass scale, belong to domain
-    randomization, which this port does not run yet).
+    ``kp``/``kv`` are shared ``[nd]`` gains or per-env ``[N, nd]`` ones;
+    ``friction_mu`` is a float or a per-env ``[N]`` tensor; ``mass_scale``
+    (whole-body mass/inertia multiplier: spatial inertias, bias forces and
+    contact forces scale with it, gravity and the actuators do not) is the
+    float 1.0 or a per-env ``[N]`` tensor.  Per-env values come from
+    domain randomization (``ImitationEnv._effective_params``).
     """
 
-    kp: torch.Tensor                # [nd]
-    kv: torch.Tensor                # [nd]
+    kp: torch.Tensor                # [nd] or [N, nd]
+    kv: torch.Tensor                # [nd] or [N, nd]
     ctrl_dt: float = 0.01
     substeps: int = 4
     max_torque: float = 200.0
@@ -56,9 +59,33 @@ class EngineParams:
     position_limit_margin: float = 1e-4
     contact_timeconst: float = 0.02
     contact_dampratio: float = 1.0
-    friction_mu: float = 1.0
+    friction_mu: float | torch.Tensor = 1.0
+    mass_scale: float | torch.Tensor = 1.0
     gravity: float = 9.81
     self_collision: bool = True
+
+
+def mass_scale_or_none(params: EngineParams):
+    """The mass scale as a float32 ``[N]`` or ``[1]`` tensor, or None for the
+    float 1.0 (no scaling)."""
+    ms = params.mass_scale
+    if not isinstance(ms, torch.Tensor):
+        if float(ms) == 1.0:
+            return None
+        ms = torch.tensor(float(ms))
+    ms = ms.to(torch.float32)
+    return ms[None] if ms.ndim == 0 else ms
+
+
+def is_per_env(params: EngineParams) -> bool:
+    """Whether ``params`` carry per-env leaves (domain randomization): the
+    control step kernel's per-env variant takes them."""
+    return (
+        torch.as_tensor(params.kp).ndim == 2
+        or torch.as_tensor(params.kv).ndim == 2
+        or isinstance(params.friction_mu, torch.Tensor)
+        or mass_scale_or_none(params) is not None
+    )
 
 
 def default_state(model: PhysicsModel, num_envs: int, device="cpu",

@@ -11,6 +11,12 @@ quantities stack on a leading body axis where the math is independent per
 body (pass 1 of the ABA, the contact points); FK and ABA passes 2 and 3
 walk the bodies in BFS order, relying on ``parent[i] < i`` and on body
 ``i`` owning dof ``i - 1``.
+
+Per-env parameters (domain randomization) enter as ``kp``/``kv``
+``[nd, N]``, ``mu`` ``[N]`` and the mass scale ``ms`` ``[N]``; ``ms``
+multiplies the contact and held self-collision forces (after their sum),
+the articulated-inertia blocks and the bias forces, as in the JAX
+package's ``_substep_core``.
 """
 
 from __future__ import annotations
@@ -20,7 +26,9 @@ from dataclasses import replace
 import numpy as np
 import torch
 
-from add_gym_torch.physics.engine import EngineParams, SimState, apply_pd_target
+from add_gym_torch.physics.engine import (
+    EngineParams, SimState, apply_pd_target, mass_scale_or_none,
+)
 from add_gym_torch.physics.model import PhysicsModel
 
 # --------------------------------------------------------------------------
@@ -314,9 +322,9 @@ def _sc_forces_stacked(fc: FusedModelConstants, params: EngineParams, dt, W, o, 
 def _substep_core(
     fc: FusedModelConstants,
     params: EngineParams,
-    kp,          # [nd, 1]
-    kv,          # [nd, 1]
-    mu,          # float
+    kp,          # [nd, 1] or [nd, N]
+    kv,          # [nd, 1] or [nd, N]
+    mu,          # float or [N]
     dt,
     root_pos,    # [3, N]
     root_quat,   # [4, N]
@@ -326,6 +334,7 @@ def _substep_core(
     qd,          # [nd, N]
     tgt,         # [nd, N]
     sc_ext=None,  # (n [nb,3,N], f [nb,3,N]) held self-collision forces
+    ms=None,      # [N] per-env mass/inertia scale (None = 1)
 ):
     """One physics substep on stacked env-minor tensors.
 
@@ -369,11 +378,19 @@ def _substep_core(
     f_w.index_add_(0, cb, f_pt)
     n_w.index_add_(0, cb, n_pt)
     contact.index_add_(0, cb, fn)
+    if ms is not None:
+        # contact springs are mass-proportional: a heavier robot presses
+        # and is caught proportionally harder
+        contact = contact * ms
 
     # ---------------------------------------------- self-collision (held)
     if sc_ext is not None:
         n_w = n_w + sc_ext[0]
         f_w = f_w + sc_ext[1]
+    if ms is not None:
+        # ground + self-collision forces scale with the mass, after the sum
+        n_w = n_w * ms
+        f_w = f_w * ms
 
     # ------------------------------------------------------- joint torques
     t_pd = torch.clamp(kp * (tgt - q) - kv * qd, -params.max_torque, params.max_torque)
@@ -401,11 +418,17 @@ def _substep_core(
     Iv_f = m33_T_vec(IA_B, w_b) + mass * v_b
     bias_n = vcross(w_b, Iv_n) + vcross(v_b, Iv_f)
     bias_f = vcross(w_b, Iv_f)
+    IA_D = t["IA_D"]
+    if ms is not None:
+        # the per-env mass scale lifts the inertia blocks and bias forces
+        bias_n = bias_n * ms
+        bias_f = bias_f * ms
+        IA_A, IA_B, IA_D = IA_A * ms, IA_B * ms, IA_D * ms
     pA_n = list((bias_n - m33_T_vec(W, n_w)).unbind(0))
     pA_f = list((bias_f - m33_T_vec(W, f_w)).unbind(0))
     A = list(IA_A.expand(nb, 3, 3, N).unbind(0))
     B = list(IA_B.expand(nb, 3, 3, N).unbind(0))
-    D = list(t["IA_D"].expand(nb, 3, 3, N).unbind(0))
+    D = list(IA_D.expand(nb, 3, 3, N).unbind(0))
 
     # ----------------------------------------------------------- ABA pass 2
     U_t = [None] * nb
@@ -531,11 +554,23 @@ def _solve6(A, B, D, rhs):
     return torch.stack(x)                                  # [6, N]
 
 
-def _check_params(params: EngineParams):
-    if torch.as_tensor(params.kp).ndim != 1 or torch.as_tensor(params.kv).ndim != 1:
-        raise ValueError("per-env PD gains (domain randomization) are not ported yet")
-    if not isinstance(params.friction_mu, (int, float)):
-        raise ValueError("per-env friction (domain randomization) is not ported yet")
+def _prep_params(params: EngineParams, device):
+    """Gains in stacked layout (``[nd, N]`` per env or ``[nd, 1]`` shared),
+    friction (float or ``[N]``) and the mass scale (``[N]`` / ``[1]`` or
+    None) on ``device``."""
+    def gains(x):
+        x = torch.as_tensor(x, dtype=torch.float32, device=device)
+        return x.T if x.ndim == 2 else x[:, None]
+
+    mu = params.friction_mu
+    if isinstance(mu, torch.Tensor):
+        mu = mu.to(device=device, dtype=torch.float32)
+    else:
+        mu = float(mu)
+    ms = mass_scale_or_none(params)
+    if ms is not None:
+        ms = ms.to(device)
+    return gains(params.kp), gains(params.kv), mu, ms
 
 
 def compute_sc_ext(fc: FusedModelConstants, params: EngineParams, dt, state: SimState):
@@ -560,14 +595,10 @@ def fused_step(fc: FusedModelConstants, params: EngineParams, state: SimState, p
     Returns (state, contact [N, nb]) where contact is the last substep's
     per-body normal force.
     """
-    _check_params(params)
     tgt = apply_pd_target(fc.model, params, state, pd_target)
     state = replace(state, pd_target=tgt)
     dt = params.ctrl_dt / params.substeps
-    dev = state.root_pos.device
-    kp = torch.as_tensor(params.kp, dtype=torch.float32, device=dev)[:, None]
-    kv = torch.as_tensor(params.kv, dtype=torch.float32, device=dev)[:, None]
-    mu = float(params.friction_mu)
+    kp, kv, mu, ms = _prep_params(params, state.root_pos.device)
     sc_ext = compute_sc_ext(fc, params, dt, state)
 
     rp, rq, rv, ra = state.root_pos.T, state.root_quat.T, state.root_vel.T, state.root_ang_vel.T
@@ -575,7 +606,7 @@ def fused_step(fc: FusedModelConstants, params: EngineParams, state: SimState, p
     contact = None
     for _ in range(params.substeps):
         rp, rq, rv, ra, q, qd, contact = _substep_core(
-            fc, params, kp, kv, mu, dt, rp, rq, rv, ra, q, qd, tg, sc_ext=sc_ext,
+            fc, params, kp, kv, mu, dt, rp, rq, rv, ra, q, qd, tg, sc_ext=sc_ext, ms=ms,
         )
     new_state = SimState(
         root_pos=rp.T, root_quat=rq.T, root_vel=rv.T, root_ang_vel=ra.T,

@@ -317,6 +317,26 @@ def random_sim_state(model, n: int, seed: int, height: float, device="cpu"):
     return fields, command
 
 
+def per_env_params(kp, kv, n: int, seed: int, mass_range=(0.5, 2.0)):
+    """Per-env control parameters as domain randomization draws them, made
+    from a numpy seed: a dict of float32 arrays ``kp``/``kv`` [n, nd] (the
+    shared gains times log-uniform scales in [0.8, 1.2]), ``friction_mu``
+    [n] (log-uniform in [0.6, 1.4]) and ``mass_scale`` [n] (log-uniform in
+    ``mass_range``).  The ranges are the ``dr_pod`` config's, with the mass
+    range widened by default so that the mass scale matters."""
+    rng = np.random.default_rng(seed)
+
+    def logu(lo, hi, *shape):
+        return np.exp(rng.uniform(np.log(lo), np.log(hi), shape)).astype(np.float32)
+
+    return dict(
+        kp=np.asarray(kp, np.float32)[None] * logu(0.8, 1.2, n, 1),
+        kv=np.asarray(kv, np.float32)[None] * logu(0.8, 1.2, n, 1),
+        friction_mu=logu(0.6, 1.4, n),
+        mass_scale=logu(*mass_range, n),
+    )
+
+
 STATE_FIELDS = ("root_pos", "root_quat", "root_vel", "root_ang_vel", "dof_pos", "dof_vel",
                 "pd_target")
 

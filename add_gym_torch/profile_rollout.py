@@ -1,15 +1,15 @@
-"""Where a rollout's time goes on the GPU.
+"""Where a rollout's, or a whole training iteration's, time goes on the GPU.
 
-    python -m add_gym_torch.profile_rollout
+    python -m add_gym_torch.profile_rollout            # one rollout_lean
+    python -m add_gym_torch.profile_rollout --train    # one train_iter
 
 Builds the slice as ``chip_smoke.py`` does (config ``train``, the
 G1-shaped fixture and a synthetic clip, 4096 envs, the default agent and
-32 steps per rollout), runs one
-warm-up ``rollout_lean``, then one rollout timed with CUDA events and one
-under ``torch.profiler``.  Prints the rollout's wall time, the device time
-summed over all kernels and copies (the device's busy share of the wall
-time), the control-step kernel's share, and the kernels with the most
-device time.  Needs a CUDA device.
+32 steps per rollout), runs two warm-up calls, then one call timed with
+CUDA events and one under ``torch.profiler``.  Prints the call's wall
+time, the device time summed over all kernels and copies (the device's
+busy share of the wall time), the control-step kernel's share, and the
+kernels with the most device time.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ from add_gym_torch.utils.config import load_config
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NUM_ENVS = 4096
 STEPS = 32
-TOP = 15
+TOP = 20
 
 
 def _device_rows(prof):
@@ -65,14 +65,26 @@ def main() -> int:
     n = NUM_ENVS
     es = env.reset_where(env.init_state(n), torch.ones(n, dtype=torch.bool, device="cuda"),
                          ts.sampler)
-    obs = env.compute_obs(es)
-    es, obs, _, _ = agent.rollout_lean(ts, es, obs, STEPS)      # warm-up
+    state = [ts, es, env.compute_obs(es)]
+    train = "--train" in sys.argv[1:]
+    what = "train_iter" if train else "rollout"
+
+    def call():
+        ts, es, obs = state
+        if train:
+            ts, es, obs, _ = agent.train_iter(ts, es, obs)
+        else:
+            es, obs, _, _ = agent.rollout_lean(ts, es, obs, STEPS)
+        state[:] = [ts, es, obs]
+
+    for _ in range(2):                                          # warm-up
+        call()
     torch.cuda.synchronize()
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
-    es, obs, _, _ = agent.rollout_lean(ts, es, obs, STEPS)
+    call()
     end.record()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
@@ -81,7 +93,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        es, obs, _, _ = agent.rollout_lean(ts, es, obs, STEPS)
+        call()
         torch.cuda.synchronize()
     rows = _device_rows(prof)
     device_ms = sum(r[1] for r in rows) / 1e3
@@ -89,15 +101,15 @@ def main() -> int:
     launches = sum(r[2] for r in rows)
     rows.sort(key=lambda r: -r[1])
     print(f"device {torch.cuda.get_device_name(0)}; {n} envs x {STEPS} steps")
-    print(f"rollout wall {wall_ms:.3f} ms (host clock), {event_ms:.3f} ms (CUDA events)")
-    print(f"profiled rollout: device busy {device_ms:.3f} ms over {launches} device ops; "
+    print(f"{what} wall {wall_ms:.3f} ms (host clock), {event_ms:.3f} ms (CUDA events)")
+    print(f"profiled {what}: device busy {device_ms:.3f} ms over {launches} device ops; "
           f"control-step kernel {kernel_ms:.3f} ms")
     for key, us, count in rows[: TOP]:
         print(f"  {us / 1e3:9.3f} ms  {count:6d}x  {key[:100]}")
     print(json.dumps({
-        "num_envs": n, "steps": STEPS, "rollout_ms_events": event_ms,
-        "rollout_ms_wall": wall_ms, "device_busy_ms": device_ms,
-        # busy share: profiled device time over the unprofiled rollout time
+        "what": what, "num_envs": n, "steps": STEPS, "ms_events": event_ms,
+        "ms_wall": wall_ms, "device_busy_ms": device_ms,
+        # busy share: profiled device time over the unprofiled call's time
         "device_busy_share": device_ms / event_ms, "control_step_kernel_ms": kernel_ms,
         "device_ops": launches,
     }))

@@ -6,7 +6,7 @@ Phases (any failure exits non-zero; nothing here catches its own error):
 
 1. Build the control-step kernel from ``add_gym_torch/csrc`` with nvcc.
 2. Kernel vs plain version on the card: the mini biped (N=256) and the
-   G1-shaped fixture (N=4096 and the ragged N=4000), 8 control steps from
+   G1-shaped fixture (N=4096 and the ragged N=4000), 4 control steps from
    states with ground contact and non-zero velocities; each step runs the
    kernel and ``fused_step`` on the same input state.  Tolerances
    (``add_gym_torch.physics.testing.step_tolerances``): positions and
@@ -14,7 +14,11 @@ Phases (any failure exits non-zero; nothing here catches its own error):
    contact rtol = 1e-5, atol = 5e-2 N.  The contact springs (~2e4 N/m per
    point) turn one f32 ulp of a ~1 m height into ~1e-3 N per point, and
    through a light link's inertia into ~1e-5 of velocity per step.
-3. The slice: ``build_env`` / ``build_agent`` from config ``train`` on the
+   2b. The same for the kernel's per-env (domain-randomization) variant on
+   the G1-shaped fixture at N=4096 and N=4000, 8 control steps, with
+   per-env gains, friction and mass scale (``testing.per_env_params``: the ``dr_pod``
+   ranges, mass widened to [0.5, 2.0]).
+3. The rollout: ``build_env`` / ``build_agent`` from config ``train`` on the
    G1-shaped fixture and a synthetic clip, 4096 envs, the default agent
    (``fc_3layers_1024units``, bf16 mixed precision), 32-step
    ``rollout_lean``: one warm-up and three timed rollouts through the
@@ -22,15 +26,30 @@ Phases (any failure exits non-zero; nothing here catches its own error):
    per rollout.  Before that, a small check: the same 4-step f32 rollout
    at 64 envs through the kernel and through the plain step agrees.
 4. Times: CUDA events over 100 launches at 4096 envs on the G1-shaped
-   fixture, beside the plain version and the kernel's bound.
-5. The kernel line, the card's name and power limit, and the result line.
+   fixture, for each variant, beside the plain version and the bound.
+5. Training, config ``train`` (main variant): ``train_iter`` at 4096 envs
+   x 32 steps, 5 epochs x 8 minibatches of 16,384, as ``bench.py`` times
+   it: 2 warm-up iterations, one discarded 5-iteration ramp window, then
+   the median of three 5-iteration windows -> train env-steps/s; the
+   CUDA-event split of one more iteration into rollout / build_train_data
+   / update_model, and the peak device memory of the timed windows.
+6. Training, config ``dr_pod`` (per-env variant) at 4096 envs: one warm-up
+   and three timed iterations; exactly 32 per-env launches per iteration,
+   finite infos, parameters that changed.
+7. The kernel line, the card's name and power limit, and the result line.
 
-It imports nothing of JAX or of the JAX package.  Fixture files and the
-kernel library go under ``build/`` (listed in ``.gitignore``).
+Each path (3, 5, 6) is driven with the launch counts set to 0 just before
+it and read just after.  Each log line starts with the seconds since the
+start; the JSON lines, the card's line and the result line are printed
+bare.  The kernel-vs-plain ``train_iter`` check of ``dr_pod`` is a
+card-only test (``tests/test_torch_cuda.py``).  It imports nothing of JAX
+or of the JAX package.  Fixture files and the kernel library go under ``build/`` (listed in
+``.gitignore``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -56,19 +75,33 @@ NUM_ENVS = 4096
 STEPS = 32
 TIMED_ROLLOUTS = 3
 TIMING_LAUNCHES = 100
+PLAIN_CALLS = 3           # the plain step takes ~0.25 s per call at 4096 envs on an H100
+MAIN_COMPARE_STEPS = 4    # phase 2 (the main variant)
+DR_COMPARE_STEPS = 8      # phase 2b (the per-env variant)
+TRAIN_WARMUP = 2          # bench.py's protocol: warm-up iterations,
+TRAIN_WINDOW = 5          # iterations per window,
+TRAIN_WINDOWS = 3         # timed windows after one discarded ramp window
+DR_TIMED = 3
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM rate
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 
 
+T_START = time.perf_counter()
+
+
 def log(*args):
-    print(*args, flush=True)
+    print(f"[{time.perf_counter() - T_START:7.1f} s]", *args, flush=True)
 
 
-def control_step_flops(nb: int, nd: int, ncp: int, npair: int, substeps: int) -> int:
+def control_step_flops(nb: int, nd: int, ncp: int, npair: int, substeps: int,
+                       per_env: bool = False) -> int:
     """f32 operations per env of one control step, counted from
     csrc/control_step.cuh (a fused multiply-add counts as 2, a sqrt, a
-    division or a transcendental as 1)."""
+    division or a transcendental as 1).  The per-env variant adds the mass
+    scale's products: per body and substep the contact sum, the two summed
+    wrenches (6), the A, B and D blocks (9 + 9 + 1) and the bias forces
+    (6)."""
     fk = 45 + (nb - 1) * 134            # root rotation + per-joint FK and velocities
     contact = ncp * 63                  # per point: frame, velocity, normal, friction, torque
     pass1 = nb * 177                    # body velocities, bias forces, external forces
@@ -80,7 +113,17 @@ def control_step_flops(nb: int, nd: int, ncp: int, npair: int, substeps: int) ->
     substep = fk + contact + pass1 + torque + pass2 + solve6 + pass3 + root
     held_sc = fk + npair * 80           # FK of the input state + sphere pairs
     pd = nd * 6                         # target clamp + slew limit
+    if per_env:
+        substep += nb * 32
     return substeps * substep + held_sc + pd
+
+
+def control_step_bytes(fbuf, ibuf, n: int, nb: int, nd: int, per_env: bool = False) -> int:
+    """Bytes one launch must move: the input block (13 + 4 nd rows, plus
+    2 nd + 2 per-env rows), the output block (13 + 3 nd + nb rows) and the
+    model buffers, each once."""
+    rows_in = 13 + 4 * nd + (2 * nd + 2 if per_env else 0)
+    return 4 * n * (rows_in + 13 + 3 * nd + nb) + fbuf.nbytes + ibuf.nbytes
 
 
 def sim_state(fields, device):
@@ -99,10 +142,18 @@ def model_setup(path, gains):
     return model, FusedModelConstants(model), params
 
 
+def per_env(params, n, seed):
+    """``params`` with per-env gains, friction and mass scale on the card."""
+    pe = fx.per_env_params(params.kp.cpu().numpy(), params.kv.cpu().numpy(), n, seed)
+    return dataclasses.replace(params, **{k: torch.as_tensor(v, device=DEVICE)
+                                          for k, v in pe.items()})
+
+
 def compare_step(fc, params, state, cmd):
-    """One control step by the kernel and by the plain version from the same
-    input; returns (plain next state, max abs errors)."""
-    out = cs.launch_control_step(fc, params, cs.pack_state(state, cmd))
+    """One control step by the kernel (the variant ``params`` select) and by
+    the plain version from the same input; returns (plain next state, max
+    abs errors)."""
+    out = cs.launch_control_step(fc, params, cs.pack_state(state, cmd, params))
     sk, ck = cs.unpack_state(out, fc.nd)
     sp, cp = fused_step(fc, params, state, cmd)
     torch.cuda.synchronize()
@@ -129,7 +180,7 @@ def phase_kernel_vs_plain(mini_path, g1_path):
         state = sim_state(fields, DEVICE)
         cmd = torch.as_tensor(cmd, device=DEVICE)
         errs_all = {}
-        for _ in range(8):
+        for _ in range(MAIN_COMPARE_STEPS):
             state, errs = compare_step(fc, params, state, cmd)
             for k, v in errs.items():
                 errs_all[k] = max(errs_all.get(k, 0.0), v)
@@ -141,8 +192,31 @@ def phase_kernel_vs_plain(mini_path, g1_path):
     return worst
 
 
-def _slice_cfg(g1_path, clip_path, num_envs, steps, mixed=None, kernel="auto", net=None):
-    cfg = load_config("train")
+def phase_dr_kernel_vs_plain(g1_path):
+    worst = {}
+    for n in (NUM_ENVS, 4000):
+        model, fc, params = model_setup(g1_path, "g1")
+        params = per_env(params, n, seed=n + 1)
+        fields, cmd = fx.random_sim_state(model, n, seed=n + 2, height=fx.G1_PELVIS_HEIGHT)
+        state = sim_state(fields, DEVICE)
+        cmd = torch.as_tensor(cmd, device=DEVICE)
+        errs_all = {}
+        for _ in range(DR_COMPARE_STEPS):
+            state, errs = compare_step(fc, params, state, cmd)
+            for k, v in errs.items():
+                errs_all[k] = max(errs_all.get(k, 0.0), v)
+        ms = params.mass_scale
+        log(f"[phase 2b] per-env variant, g1_fixture N={n} (mass scale "
+            f"{ms.min().item():.3f}-{ms.max().item():.3f}): max abs err "
+            + " ".join(f"{k}={v:.3e}" for k, v in errs_all.items()))
+        for k, v in errs_all.items():
+            worst[k] = max(worst.get(k, 0.0), v)
+    return worst
+
+
+def _slice_cfg(g1_path, clip_path, num_envs, steps, mixed=None, kernel="auto", net=None,
+               name="train"):
+    cfg = load_config(name)
     cfg["robot"]["asset_path"] = g1_path
     cfg["task"]["motion_file"] = clip_path
     cfg["engine"]["num_envs"] = num_envs
@@ -188,6 +262,11 @@ def phase_small_slice_check(g1_path, clip_path):
         f"{worst:.3e} (rtol=atol=1e-3)")
 
 
+def reset_counts():
+    cs.cuda_step.launches = 0
+    cs.cuda_step.dr_launches = 0
+
+
 def phase_slice(g1_path, clip_path):
     cfg = _slice_cfg(g1_path, clip_path, NUM_ENVS, STEPS)
     env = build_env(cfg, device=DEVICE)
@@ -201,7 +280,7 @@ def phase_slice(g1_path, clip_path):
     ts, es, obs = _start(env, agent, NUM_ENVS, seed=0)
     torch.cuda.synchronize()
 
-    cs.cuda_step.launches = 0
+    reset_counts()
     times = []
     for i in range(1 + TIMED_ROLLOUTS):
         before = cs.cuda_step.launches
@@ -226,11 +305,13 @@ def phase_slice(g1_path, clip_path):
             f"{NUM_ENVS * STEPS / dt:.1f} env-steps/s, resets={resets}, "
             f"mean reward={traj['reward'].mean().item():.4f}")
     launches = cs.cuda_step.launches
+    if cs.cuda_step.dr_launches:
+        raise AssertionError("the rollout of config train launched the per-env variant")
     med = float(np.median(times))
     log(f"[phase 3] rollout env-steps/s (median of {TIMED_ROLLOUTS}): {NUM_ENVS * STEPS / med:.1f}")
-    log(f"[phase 3] kernel launches over the main path: {launches} "
+    log(f"[phase 3] kernel launches over the rollouts: {launches} "
         f"({launches // (1 + TIMED_ROLLOUTS)} per rollout)")
-    return launches, NUM_ENVS * STEPS / med
+    return NUM_ENVS * STEPS / med
 
 
 def _time_ms(fn, iters):
@@ -246,26 +327,156 @@ def _time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def phase_times(g1_path):
+def phase_times(g1_path, dr: bool):
+    """(kernel ms/launch, plain ms/call, bound ms, bound by) of one variant."""
     model, fc, params = model_setup(g1_path, "g1")
+    if dr:
+        params = per_env(params, NUM_ENVS, seed=8)
     fields, cmd = fx.random_sim_state(model, NUM_ENVS, seed=7, height=fx.G1_PELVIS_HEIGHT)
     state = sim_state(fields, DEVICE)
     cmd = torch.as_tensor(cmd, device=DEVICE)
-    inp = cs.pack_state(state, cmd)
+    inp = cs.pack_state(state, cmd, params)
     kernel_ms = _time_ms(lambda: cs.launch_control_step(fc, params, inp), TIMING_LAUNCHES)
-    plain_ms = _time_ms(lambda: fused_step(fc, params, state, cmd), 10)
+    plain_ms = _time_ms(lambda: fused_step(fc, params, state, cmd), PLAIN_CALLS)
 
     fbuf, ibuf, counts = cs.pack_model(fc, params)
     nb, nd, ncp, nsph, npair, substeps = counts
-    flops = control_step_flops(nb, nd, ncp, npair, substeps) * NUM_ENVS
-    io_bytes = 4 * NUM_ENVS * ((13 + 4 * nd) + (13 + 3 * nd + nb)) + fbuf.nbytes + ibuf.nbytes
+    flops = control_step_flops(nb, nd, ncp, npair, substeps, per_env=dr) * NUM_ENVS
+    io_bytes = control_step_bytes(fbuf, ibuf, NUM_ENVS, nb, nd, per_env=dr)
     bound_ms = max(flops / PEAK_F32, io_bytes / PEAK_BYTES) * 1e3
     bound_by = "operations" if flops / PEAK_F32 >= io_bytes / PEAK_BYTES else "bytes"
-    log(f"[phase 4] control step at N={NUM_ENVS}: kernel {kernel_ms:.4f} ms/launch "
-        f"(CUDA events, {TIMING_LAUNCHES} launches), plain version {plain_ms:.4f} ms/call; "
-        f"bound {bound_ms:.5f} ms by {bound_by} ({flops / NUM_ENVS:.0f} flops/env, "
-        f"{io_bytes} bytes)")
+    log(f"[phase 4] {'per-env' if dr else 'main'} variant at N={NUM_ENVS}: kernel "
+        f"{kernel_ms:.4f} ms/launch (CUDA events, {TIMING_LAUNCHES} launches), plain version "
+        f"{plain_ms:.4f} ms/call ({PLAIN_CALLS} calls); bound {bound_ms:.5f} ms by {bound_by} "
+        f"({flops / NUM_ENVS:.0f} flops/env, {io_bytes} bytes)")
     return kernel_ms, plain_ms, bound_ms, bound_by
+
+
+def _check_info(info, where):
+    for k, v in info.items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{where}: info[{k}] = {v} is not finite")
+
+
+def _train_setup(name, g1_path, clip_path, seed, num_envs=NUM_ENVS, **kw):
+    cfg = _slice_cfg(g1_path, clip_path, num_envs, STEPS, name=name, **kw)
+    env = build_env(cfg, device=DEVICE)
+    agent = build_agent(cfg, env)
+    ts, es, obs = _start(env, agent, num_envs, seed=seed)
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed + 1)
+    return env, agent, [ts, es, obs], g
+
+
+def _train_iters(agent, state, g, iters, where):
+    """``iters`` train_iter calls on ``state`` = [ts, es, obs] in place;
+    returns the wall seconds up to a synchronise and the last info."""
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        ts, es, obs, info = agent.train_iter(*state, generator=g)
+        state[:] = [ts, es, obs]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    _check_info(info, where)
+    return dt, info
+
+
+def phase_train(g1_path, clip_path):
+    """Config train at 4096 envs, timed as bench.py times it."""
+    env, agent, state, g = _train_setup("train", g1_path, clip_path, seed=10)
+    a = agent.cfg
+    if not env.kernel or env.dr.enabled:
+        raise AssertionError("config train must run the main variant of the kernel")
+    per_iter = a.steps_per_iter * NUM_ENVS
+    log(f"[phase 5] train: num_envs={NUM_ENVS} steps_per_iter={a.steps_per_iter} "
+        f"epochs={a.update_epochs} minibatches={int(np.ceil(a.steps_per_iter / a.batch_size))} "
+        f"actor={a.actor_net} critic={a.critic_net} disc={a.disc_net} "
+        f"mixed_precision={a.mixed_precision} optimizer={a.optimizer}")
+    p0 = [p.detach().clone() for p in state[0].params.parameters()]
+    torch.cuda.synchronize()
+
+    reset_counts()
+    dt, _ = _train_iters(agent, state, g, TRAIN_WARMUP, "warm-up")
+    log(f"[phase 5] warm-up: {TRAIN_WARMUP} iterations in {dt:.3f} s")
+    dt, _ = _train_iters(agent, state, g, TRAIN_WINDOW, "ramp window")
+    log(f"[phase 5] ramp window (discarded): {TRAIN_WINDOW * per_iter / dt:.1f} env-steps/s")
+    torch.cuda.reset_peak_memory_stats()
+    rates = []
+    for w in range(TRAIN_WINDOWS):
+        dt, info = _train_iters(agent, state, g, TRAIN_WINDOW, f"window {w}")
+        rates.append(TRAIN_WINDOW * per_iter / dt)
+        log(f"[phase 5] window {w}: {TRAIN_WINDOW} iterations in {dt:.4f} s = "
+            f"{rates[-1]:.1f} env-steps/s; loss={info['loss'].item():.4f} "
+            f"disc_loss={info['disc_loss'].item():.4f} mean_reward={info['mean_reward'].item():.4f}")
+    launches, dr_launches = cs.cuda_step.launches, cs.cuda_step.dr_launches
+    iters = TRAIN_WARMUP + (1 + TRAIN_WINDOWS) * TRAIN_WINDOW
+    peak = torch.cuda.max_memory_allocated()
+    if launches != iters * a.steps_per_iter or dr_launches:
+        raise AssertionError(f"{launches} main / {dr_launches} per-env launches over {iters} "
+                             f"iterations, expected {iters * a.steps_per_iter} / 0")
+    if not any(not torch.equal(x, y) for x, y in zip(p0, state[0].params.parameters())):
+        raise AssertionError("train_iter left every parameter unchanged")
+    rate = float(np.median(rates))
+    log(f"[phase 5] train env-steps/s (median of {TRAIN_WINDOWS} windows of {TRAIN_WINDOW}): "
+        f"{rate:.1f}; {launches} kernel launches over {iters} iterations "
+        f"({launches // iters} per iteration); peak device memory {peak / 2**30:.3f} GiB")
+
+    # the split of one more iteration, CUDA events at the phase boundaries
+    marks = []
+
+    def hook(phase):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((phase, ev))
+
+    hook("start")
+    agent.train_iter(*state, generator=g, hook=hook)
+    hook("end")
+    torch.cuda.synchronize()
+    split = {b[0]: a_[1].elapsed_time(b[1]) for a_, b in zip(marks, marks[1:])}
+    total = marks[0][1].elapsed_time(marks[-1][1])
+    log(f"[phase 5] split of one iteration (CUDA events): rollout {split['rollout']:.2f} ms, "
+        f"build_train_data {split['data']:.2f} ms, update_model {split['update']:.2f} ms, "
+        f"normalizers+info {split['end']:.2f} ms; total {total:.2f} ms")
+    return dict(rate=rate, launches=launches, split=split, total_ms=total, peak_bytes=peak)
+
+
+def phase_train_dr(g1_path, clip_path):
+    """Config dr_pod at 4096 envs through the per-env variant."""
+    env, agent, state, g = _train_setup("dr_pod", g1_path, clip_path, seed=20)
+    steps = agent.cfg.steps_per_iter
+    if not env.kernel or not env.dr.enabled:
+        raise AssertionError("config dr_pod must run the kernel with domain randomization")
+    log(f"[phase 6] dr_pod: num_envs={NUM_ENVS} domain_rand={env.dr}")
+    p0 = [p.detach().clone() for p in state[0].params.parameters()]
+    torch.cuda.synchronize()
+
+    reset_counts()
+    dt, _ = _train_iters(agent, state, g, 1, "dr warm-up")
+    log(f"[phase 6] warm-up iteration: {dt:.3f} s")
+    times = []
+    for i in range(DR_TIMED):
+        before = cs.cuda_step.dr_launches
+        dt, info = _train_iters(agent, state, g, 1, f"dr iteration {i}")
+        if cs.cuda_step.dr_launches - before != steps:
+            raise AssertionError(f"dr iteration {i}: {cs.cuda_step.dr_launches - before} "
+                                 f"per-env launches, expected {steps}")
+        times.append(dt)
+        log(f"[phase 6] iteration {i}: {dt:.4f} s = {steps * NUM_ENVS / dt:.1f} env-steps/s; "
+            f"loss={info['loss'].item():.4f} mean_reward={info['mean_reward'].item():.4f} "
+            f"fail_frac={info['fail_frac'].item():.4f}")
+    launches, dr_launches = cs.cuda_step.launches, cs.cuda_step.dr_launches
+    if launches or dr_launches != (1 + DR_TIMED) * steps:
+        raise AssertionError(f"{launches} main / {dr_launches} per-env launches, expected "
+                             f"0 / {(1 + DR_TIMED) * steps}")
+    if not any(not torch.equal(x, y) for x, y in zip(p0, state[0].params.parameters())):
+        raise AssertionError("train_iter left every parameter unchanged")
+    ms = state[1].dr["mass_scale"]
+    rate = steps * NUM_ENVS / float(np.median(times))
+    log(f"[phase 6] dr_pod train env-steps/s (median of {DR_TIMED}): {rate:.1f}; "
+        f"{dr_launches} per-env launches ({dr_launches // (1 + DR_TIMED)} per iteration); "
+        f"mass scale over the envs {ms.min().item():.3f}-{ms.max().item():.3f}")
+    return dict(rate=rate, launches=dr_launches)
 
 
 def main() -> int:
@@ -292,31 +503,47 @@ def main() -> int:
                                     seed=0, num_frames=300)
 
     worst = phase_kernel_vs_plain(mini_path, g1_path)
+    worst_dr = phase_dr_kernel_vs_plain(g1_path)
     phase_small_slice_check(g1_path, clip_path)
-    launches, env_steps_per_s = phase_slice(g1_path, clip_path)
-    kernel_ms, plain_ms, bound_ms, bound_by = phase_times(g1_path)
+    env_steps_per_s = phase_slice(g1_path, clip_path)
+    times = {dr: phase_times(g1_path, dr) for dr in (False, True)}
+    train = phase_train(g1_path, clip_path)
+    train_dr = phase_train_dr(g1_path, clip_path)
 
-    log(json.dumps({"kernels": [{
-        "name": "control_step",
-        "route": "cuda",
-        "source": "add_gym_torch/csrc/control_step.cu",
-        "replaces": "add_gym_tpu/physics/pallas_step.py:74",
-        "launches": launches,
-        "max_abs_err": max(worst.values()),
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }]}))
-    log(json.dumps({"rollout_env_steps_per_s": env_steps_per_s, "num_envs": NUM_ENVS,
-                    "steps_per_iter": STEPS}))
+    entries = []
+    for name, dr, launches, errs in (
+        ("control_step", False, train["launches"], worst),
+        ("control_step_dr", True, train_dr["launches"], worst_dr),
+    ):
+        kernel_ms, plain_ms, bound_ms, bound_by = times[dr]
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "add_gym_torch/csrc/control_step.cu",
+            "replaces": "add_gym_tpu/physics/pallas_step.py:74",
+            "launches": launches,
+            "max_abs_err": max(errs.values()),
+            "ms": kernel_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,
+        })
+    print(json.dumps({"kernels": entries}))
+    print(json.dumps({
+        "rollout_env_steps_per_s": env_steps_per_s,
+        "train_env_steps_per_s": train["rate"],
+        "train_split_ms": train["split"], "train_iter_ms": train["total_ms"],
+        "train_peak_device_bytes": train["peak_bytes"],
+        "dr_train_env_steps_per_s": train_dr["rate"],
+        "num_envs": NUM_ENVS, "steps_per_iter": STEPS,
+    }))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     )
-    log(smi.stdout.strip().splitlines()[0])
-    log(json.dumps({"ok": True, "device": {
+    print(smi.stdout.strip().splitlines()[0])
+    print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0

@@ -8,6 +8,13 @@
 * The CUDA kernel's per-env device function (``csrc/control_step.cuh``),
   built with the host C++ compiler, against the plain step on both
   fixtures: the kernel's arithmetic, checked without a card.
+* The per-env variant (domain randomization: per-env ``kp``/``kv``
+  ``[N, nd]``, friction ``[N]`` and mass scale ``[N]`` in [0.5, 2.0]): the
+  plain step against the Pallas kernel body with ``use_ms`` (interpret
+  mode, mini biped) and against JAX ``fused_step`` (G1-shaped fixture);
+  the per-env device function (g++ build) against the plain step and
+  against the Pallas kernel body; and, with shared values and ``ms = 1``,
+  bit for bit against the main variant.
 * ``cuda_step`` on CPU tensors is the plain step; ``build_env`` refuses a
   CUDA device where there is none.
 
@@ -120,6 +127,15 @@ def _assert_step_close(t_state, t_contact, j_state, j_contact, tol=None):
 SCENARIOS = ["free_fall", "ground_contact", "joint_limits"]
 
 
+def _per_env_params(tp, jp, n, seed):
+    """Per-env gains, friction and mass scale (``testing.per_env_params``)
+    as port and JAX ``EngineParams``."""
+    pe = fx.per_env_params(tp.kp.numpy(), tp.kv.numpy(), n, seed)
+    t = dataclasses.replace(tp, **{k: torch.as_tensor(v) for k, v in pe.items()})
+    j = dataclasses.replace(jp, **{k: jnp.asarray(v) for k, v in pe.items()})
+    return t, j
+
+
 @pytest.mark.parametrize("kind", SCENARIOS)
 def test_mini_step_matches_pallas_kernel_body(mini, kind):
     model, fc, tp, jp, jstep, _ = mini
@@ -146,6 +162,47 @@ def test_g1_fixture_step_matches_jax_fused(g1, kind):
         assert not np.asarray(j_contact).any()
     elif kind == "ground_contact":
         assert (np.asarray(j_contact) > 0).any()
+
+
+@pytest.mark.parametrize("which", ["mini", "g1"])
+def test_per_env_step_matches_jax(mini, g1, which):
+    """Mini biped: the Pallas kernel body with ``use_ms``; G1-shaped
+    fixture: JAX ``fused_step``.  Both with per-env params, in contact."""
+    model, fc, tp, jp, jstep, _ = mini if which == "mini" else g1
+    n = 16 if which == "mini" else 8
+    height = 0.6 if which == "mini" else fx.G1_PELVIS_HEIGHT
+    fields, cmd = _scenario(model, n, "ground_contact", height)
+    tpe, jpe = _per_env_params(tp, jp, n, seed=12)
+    ts, js = _both_states(fields)
+    j_state, j_contact = jstep(jpe, js, jnp.asarray(cmd))
+    t_state, t_contact = fused_step(fc, tpe, ts, torch.as_tensor(cmd))
+    _assert_step_close(t_state, t_contact, j_state, j_contact)
+    assert (np.asarray(j_contact) > 0).any()
+    # the per-env values matter: the shared-parameter step differs
+    s_state, s_contact = fused_step(fc, tp, ts, torch.as_tensor(cmd))
+    assert not torch.allclose(s_state.dof_vel, t_state.dof_vel, rtol=1e-3, atol=1e-3)
+    assert not torch.allclose(s_contact, t_contact, rtol=1e-3, atol=1e-1)
+
+
+def test_mass_scale_applies_after_self_collision(g1):
+    """The held self-collision wrenches enter before the mass scale: with
+    legs crossed (non-zero wrenches) and ``ms = 2`` the plain step matches
+    JAX."""
+    from add_gym_torch.physics.fused_step import compute_sc_ext
+
+    model, fc, tp, jp, jstep, _ = g1
+    fields, cmd = fx.random_sim_state(model, 8, seed=6, height=fx.G1_PELVIS_HEIGHT)
+    for j, name in enumerate(model.joint_names):
+        if "hip_roll" in name:
+            fields["dof_pos"][:, j] = -0.35 if name.startswith("left") else 0.35
+    ts, js = _both_states(fields)
+    tpe = dataclasses.replace(tp, mass_scale=torch.full((8,), 2.0))
+    jpe = dataclasses.replace(jp, mass_scale=jnp.full((8,), 2.0))
+    j_state, j_contact = jstep(jpe, js, jnp.asarray(cmd))
+    t_state, t_contact = fused_step(fc, tpe, ts, torch.as_tensor(cmd))
+    _assert_step_close(t_state, t_contact, j_state, j_contact)
+    assert (t_contact > 0).any()
+    assert float(compute_sc_ext(fc, tp, tp.ctrl_dt / tp.substeps, ts)[1].abs().max()) > 1.0
 
 
 def _chain(fixture, fields, cmd, in_contact, steps=20):
@@ -254,6 +311,13 @@ extern "C" void agt_control_step_host(const float* f, const int* ib, int nb, int
   AgtEnvScratch s;
   for (int e = 0; e < n; ++e) agt_control_step_env(m, s, in, out, n, e);
 }
+extern "C" void agt_control_step_dr_host(const float* f, const int* ib, int nb, int nd, int ncp,
+                                         int nsph, int npair, int substeps, const float* in,
+                                         float* out, int n) {
+  AgtModel m{f, ib, nb, nd, ncp, nsph, npair, substeps};
+  AgtEnvScratch s;
+  for (int e = 0; e < n; ++e) agt_control_step_env<true>(m, s, in, out, n, e);
+}
 """
 
 
@@ -272,11 +336,25 @@ def host_kernel(tmp_path_factory):
         check=True, capture_output=True,
     )
     lib = ctypes.CDLL(str(lib_path))
-    lib.agt_control_step_host.restype = None
-    lib.agt_control_step_host.argtypes = (
-        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-    )
+    for fn in (lib.agt_control_step_host, lib.agt_control_step_dr_host):
+        fn.restype = None
+        fn.argtypes = (
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+        )
     return lib
+
+
+def _host_step(host_kernel, fc, params, state, cmd):
+    """One control step by the device function built for the host: the
+    per-env variant for per-env ``params``, else the main one."""
+    n, nd = state.dof_pos.shape
+    fbuf, ibuf, counts = cs.pack_model(fc, params)
+    inp = cs.pack_state(state, cmd, params)
+    out = torch.empty((13 + 3 * nd + fc.nb, n))
+    fn = (host_kernel.agt_control_step_dr_host if inp.shape[0] == 15 + 6 * nd
+          else host_kernel.agt_control_step_host)
+    fn(fbuf.ctypes.data, ibuf.ctypes.data, *counts, inp.data_ptr(), out.data_ptr(), n)
+    return cs.unpack_state(out, nd)
 
 
 @pytest.mark.parametrize("kind", ["ground_contact", "joint_limits"])
@@ -303,6 +381,79 @@ def test_device_function_matches_plain_step(host_kernel, mini, g1, which, kind):
         if kind == "ground_contact":
             assert (p_contact > 0).any()
         state = p_state
+
+
+@pytest.mark.parametrize("kind", ["ground_contact", "joint_limits"])
+@pytest.mark.parametrize("which", ["mini", "g1"])
+def test_per_env_device_function_matches_plain_step(host_kernel, mini, g1, which, kind):
+    model, fc, tp, jp = (mini if which == "mini" else g1)[:4]
+    height = 0.6 if which == "mini" else fx.G1_PELVIS_HEIGHT
+    n = 37
+    fields, cmd = _scenario(model, n, kind, height)
+    tpe = _per_env_params(tp, jp, n, seed=13)[0]
+    state = SimState(**{k: torch.as_tensor(v) for k, v in fields.items()})
+    cmd = torch.as_tensor(cmd)
+    for _ in range(4):
+        k_state, k_contact = _host_step(host_kernel, fc, tpe, state, cmd)
+        p_state, p_contact = fused_step(fc, tpe, state, cmd)
+        _assert_step_close(k_state, k_contact, p_state, p_contact)
+        if kind == "ground_contact":
+            assert (p_contact > 0).any()
+        state = p_state
+
+
+def test_per_env_device_function_matches_pallas_kernel_body(host_kernel, mini):
+    """The Pallas kernel with ``use_ms`` (interpret mode) and the per-env
+    device function on the same per-env inputs, mini biped in contact."""
+    model, fc, tp, jp, jstep, _ = mini
+    fields, cmd = _scenario(model, 16, "ground_contact", 0.6)
+    tpe, jpe = _per_env_params(tp, jp, 16, seed=14)
+    ts, js = _both_states(fields)
+    j_state, j_contact = jstep(jpe, js, jnp.asarray(cmd))
+    k_state, k_contact = _host_step(host_kernel, fc, tpe, ts, torch.as_tensor(cmd))
+    _assert_step_close(k_state, k_contact, j_state, j_contact)
+    assert (np.asarray(j_contact) > 0).any()
+
+
+def test_per_env_variant_with_shared_values_is_the_main_variant(host_kernel, g1):
+    """Shared gains and friction broadcast into the per-env rows and ms = 1
+    give the main variant's result bit for bit (x * 1.0f is exact)."""
+    model, fc, tp = g1[:3]
+    n = 19
+    fields, cmd = _scenario(model, n, "ground_contact", fx.G1_PELVIS_HEIGHT)
+    state = SimState(**{k: torch.as_tensor(v) for k, v in fields.items()})
+    cmd = torch.as_tensor(cmd)
+    bcast = dataclasses.replace(
+        tp, kp=tp.kp[None].expand(n, -1).contiguous(), kv=tp.kv[None].expand(n, -1).contiguous(),
+        friction_mu=torch.full((n,), float(tp.friction_mu)))
+    a_state, a_contact = _host_step(host_kernel, fc, tp, state, cmd)
+    b_state, b_contact = _host_step(host_kernel, fc, bcast, state, cmd)
+    for f in fx.STATE_FIELDS:
+        assert torch.equal(getattr(a_state, f), getattr(b_state, f)), f
+    assert torch.equal(a_contact, b_contact) and (a_contact > 0).any()
+
+
+def test_per_env_input_block_layout(g1):
+    model, fc, tp, jp = g1[:4]
+    n, nd = 5, model.nd
+    fields, cmd = fx.random_sim_state(model, n, seed=15, height=fx.G1_PELVIS_HEIGHT)
+    state = SimState(**{k: torch.as_tensor(v) for k, v in fields.items()})
+    tpe = _per_env_params(tp, jp, n, seed=16)[0]
+    inp = cs.pack_state(state, torch.as_tensor(cmd), tpe)
+    assert tuple(inp.shape) == (15 + 6 * nd, n) and inp.is_contiguous()
+    base = 13 + 4 * nd
+    assert torch.equal(inp[base: base + nd], tpe.kp.T)
+    assert torch.equal(inp[base + nd: base + 2 * nd], tpe.kv.T)
+    assert torch.equal(inp[base + 2 * nd], tpe.friction_mu)
+    assert torch.equal(inp[base + 2 * nd + 1], tpe.mass_scale)
+    # without a mass scale the ms row is 1; the shared block stays as it was
+    no_ms = dataclasses.replace(tpe, mass_scale=1.0)
+    assert torch.equal(cs.pack_state(state, torch.as_tensor(cmd), no_ms)[-1], torch.ones(n))
+    assert cs.pack_state(state, torch.as_tensor(cmd), tp).shape[0] == 13 + 4 * nd
+    # per-env values never reach the cached model buffer
+    fbuf = cs.pack_model(fc, tpe)[0]
+    dof_start = cs.HDR + model.nb * cs.BODY
+    assert not fbuf[dof_start + 5: dof_start + nd * cs.DOF: cs.DOF].any()
 
 
 def test_pack_model_layout(g1):

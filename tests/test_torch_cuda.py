@@ -6,8 +6,12 @@ Run on a machine with an NVIDIA GPU and no JAX from the repository root:
 
 (``--noconftest`` because tests/conftest.py sets up JAX.)  This file imports
 nothing of JAX.  Tolerances are ``physics.testing.step_tolerances()`` for
-one step, and rtol = atol = 1e-3 for a 4-step rollout.
+one step, and rtol = atol = 1e-3 for a 4-step rollout.  The per-env
+(domain-randomization) variant is held to the plain step the same way, and
+a small ``train_iter`` on the ``dr_pod`` config runs through it.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -69,6 +73,59 @@ def test_kernel_matches_plain_step(paths, which):
         torch.testing.assert_close(got, want, **tol, msg=lambda m: f"{f}: {m}")
 
 
+@pytest.mark.parametrize("which", ["mini", "g1"])
+def test_per_env_kernel_matches_plain_step(paths, which):
+    model, fc, params = _model(paths[which], which == "g1")
+    height = fx.G1_PELVIS_HEIGHT if which == "g1" else 0.6
+    n = 1000
+    fields, cmd = fx.random_sim_state(model, n, seed=12, height=height)
+    pe = fx.per_env_params(params.kp.cpu().numpy(), params.kv.cpu().numpy(), n, seed=13)
+    params = dataclasses.replace(
+        params, **{k: torch.as_tensor(v, device="cuda") for k, v in pe.items()})
+    state = SimState(**{k: torch.as_tensor(v, device="cuda") for k, v in fields.items()})
+    cmd = torch.as_tensor(cmd, device="cuda")
+    before, before_dr = cs.cuda_step.launches, cs.cuda_step.dr_launches
+    k_state, k_contact = cs.cuda_step(fc, params, state, cmd)
+    p_state, p_contact = fused_step(fc, params, state, cmd)
+    torch.cuda.synchronize()
+    assert (cs.cuda_step.launches, cs.cuda_step.dr_launches) == (before, before_dr + 1)
+    assert (p_contact > 0).any()
+    for f, tol in fx.step_tolerances().items():
+        got = k_contact if f == "contact" else getattr(k_state, f)
+        want = p_contact if f == "contact" else getattr(p_state, f)
+        torch.testing.assert_close(got, want, **tol, msg=lambda m: f"{f}: {m}")
+
+
+def test_dr_train_iter_through_kernel(paths):
+    """Two ``train_iter`` of ``dr_pod`` at 128 envs x 4 steps: every control
+    step launches the per-env variant, losses are finite, parameters move."""
+    n, steps = 128, 4
+    cfg = load_config("dr_pod")
+    cfg["robot"]["asset_path"] = paths["g1"]
+    cfg["task"]["motion_file"] = paths["clip"]
+    cfg["engine"]["num_envs"] = n
+    cfg["agent"]["steps_per_iter"] = steps
+    for k in ("actor_net", "critic_net", "disc_net"):
+        cfg["agent"][k] = "fc_2layers_64units"
+    env = build_env(cfg, device="cuda")
+    assert env.kernel and env.dr.enabled
+    agent = build_agent(cfg, env)
+    ts = agent.init_train_state()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    es = env.reset_where(env.init_state(n), torch.ones(n, dtype=torch.bool, device="cuda"),
+                         ts.sampler, generator=g)
+    obs = env.compute_obs(es)
+    p0 = [p.detach().clone() for p in ts.params.parameters()]
+    before, before_dr = cs.cuda_step.launches, cs.cuda_step.dr_launches
+    for _ in range(2):
+        ts, es, obs, info = agent.train_iter(ts, es, obs, generator=g)
+    torch.cuda.synchronize()
+    assert (cs.cuda_step.launches, cs.cuda_step.dr_launches) == (before, before_dr + 2 * steps)
+    assert all(bool(torch.isfinite(v).all()) for v in info.values())
+    assert all(not torch.equal(a, b) for a, b in zip(p0, ts.params.parameters()))
+    assert int(ts.sample_count) == 2 * steps * n
+
+
 def test_launch_refuses_a_malformed_block(paths):
     model, fc, params = _model(paths["mini"], False)
     bad = torch.zeros((5, 8), device="cuda")
@@ -105,4 +162,41 @@ def test_rollout_through_kernel_matches_plain_rollout(paths):
         trajs.append(traj)
     for k in trajs[0]:
         torch.testing.assert_close(trajs[0][k].float(), trajs[1][k].float(), rtol=1e-3, atol=1e-3,
+                                   msg=lambda m: f"{k}: {m}")
+
+
+def test_dr_train_iter_through_kernel_matches_plain_step(paths):
+    """One f32 ``train_iter`` of ``dr_pod`` at 64 envs x 4 steps through the
+    per-env kernel and through the plain step, on the same draws and
+    minibatch permutations: every info value within rtol = atol = 1e-2 (the
+    update runs 40 Adam steps on data that differs by f32 op order)."""
+    n, steps = 64, 4
+    infos = []
+    for kernel in ("on", "off"):
+        cfg = load_config("dr_pod")
+        cfg["robot"]["asset_path"] = paths["g1"]
+        cfg["task"]["motion_file"] = paths["clip"]
+        cfg["engine"]["num_envs"] = n
+        cfg["engine"]["kernel"] = kernel
+        cfg["agent"]["steps_per_iter"] = steps
+        cfg["agent"]["mixed_precision"] = False
+        for k in ("actor_net", "critic_net", "disc_net"):
+            cfg["agent"][k] = "fc_2layers_64units"
+        env = build_env(cfg, device="cuda")
+        agent = build_agent(cfg, env)
+        ts = agent.init_train_state()
+        g = torch.Generator(device="cuda").manual_seed(3)
+        es = env.reset_where(env.init_state(n), torch.ones(n, dtype=torch.bool, device="cuda"),
+                             ts.sampler, generator=g)
+        g.manual_seed(4)
+        draws = agent.sample_rollout_draws(ts, n, steps, g)
+        g.manual_seed(5)                    # the same minibatch permutations
+        before = cs.cuda_step.dr_launches
+        info = agent.train_iter(ts, es, env.compute_obs(es), generator=g, draws=draws)[3]
+        torch.cuda.synchronize()
+        assert cs.cuda_step.dr_launches - before == (steps if kernel == "on" else 0)
+        assert all(bool(torch.isfinite(v).all()) for v in info.values())
+        infos.append(info)
+    for k in infos[0]:
+        torch.testing.assert_close(infos[0][k], infos[1][k], rtol=1e-2, atol=1e-2,
                                    msg=lambda m: f"{k}: {m}")
