@@ -3,8 +3,11 @@
 Counterpart of ``add_gym_tpu/builder.py``.  Both entry points take an
 explicit ``device`` (default ``"cuda"``); asking for CUDA where there is
 none raises instead of running on the CPU.  ``engine.kernel: auto`` keeps
-the control-step kernel on a CUDA device with domain randomization on too:
-per-env parameters go to the kernel's per-env variant.
+the control-step kernel on a CUDA device with domain randomization on too
+(per-env parameters go to the kernel's per-env variant) and with
+``engine.general_narrowphase`` (the held narrowphase wrenches go in as
+extra input rows).  ``engine.fused: false`` selects the reference-layout
+engine instead, which the kernel cannot be (``kernel: on`` then raises).
 """
 
 from __future__ import annotations
@@ -20,17 +23,11 @@ from add_gym_torch.kinematics.char_model import load_char_model
 from add_gym_torch.learning.add_agent import ADDAgent, AgentConfig
 from add_gym_torch.motion.motion_lib import load_motion_lib
 from add_gym_torch.physics.engine import EngineParams
-from add_gym_torch.physics.model import build_physics_model
+from add_gym_torch.physics.model import attach_geoms, build_physics_model
 from add_gym_torch.physics.testing import MOTION_JOINT_ORDER
 from add_gym_torch.robot import build_pd_gains
 from add_gym_torch.utils.assets import asset_path
-
-
-def _resolve_device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but no CUDA device is available")
-    return device
+from add_gym_torch.utils.device import resolve_device
 
 
 def _resolve_motion_file(path: str) -> str:
@@ -44,25 +41,28 @@ def _resolve_motion_file(path: str) -> str:
     return asset_path(path)
 
 
-def _use_kernel(setting, device: torch.device) -> bool:
-    """engine.kernel: auto | on | off (YAML may hand over on/off as bools)."""
+def _use_kernel(setting, device: torch.device, fused: bool = True) -> bool:
+    """engine.kernel: auto | on | off (YAML may hand over on/off as bools).
+    ``auto`` is the kernel on a CUDA device unless ``fused`` is off."""
     if isinstance(setting, str):
         low = setting.lower()
         if low == "auto":
-            return device.type == "cuda"
+            return device.type == "cuda" and fused
         if low in ("on", "true", "1"):
             setting = True
         elif low in ("off", "false", "0"):
             setting = False
         else:
             raise ValueError(f"engine.kernel must be auto/on/off, got {setting!r}")
+    if setting and not fused:
+        raise ValueError("engine.kernel=on with engine.fused=false: the kernel needs fused=True")
     if setting and device.type != "cuda":
         raise ValueError("engine.kernel=on needs a CUDA device")
     return bool(setting)
 
 
 def build_env(cfg: Dict, device="cuda") -> ImitationEnv:
-    device = _resolve_device(device)
+    device = resolve_device(device)
     robot_cfg = cfg.get("robot", {})
     engine_cfg = cfg.get("engine", {})
     task_cfg = cfg.get("task", {})
@@ -70,6 +70,8 @@ def build_env(cfg: Dict, device="cuda") -> ImitationEnv:
     mjcf = asset_path(robot_cfg.get("asset_path", "g1_description/g1_29.xml"))
     char = load_char_model(mjcf)
     model = build_physics_model(mjcf, char)
+    if bool(engine_cfg.get("general_narrowphase", False)):
+        model = attach_geoms(model, mjcf)
 
     kp, kv = build_pd_gains(
         model,
@@ -129,9 +131,11 @@ def build_env(cfg: Dict, device="cuda") -> ImitationEnv:
         k: bool(v) if k == "enabled" else tuple(float(x) for x in v)
         for k, v in (engine_cfg.get("domain_rand") or {}).items()
     })
+    fused = bool(engine_cfg.get("fused", True))
     return ImitationEnv(
         model, motion, params, task,
-        kernel=_use_kernel(engine_cfg.get("kernel", "auto"), device),
+        kernel=_use_kernel(engine_cfg.get("kernel", "auto"), device, fused),
+        fused=fused,
         device=device,
         dr=dr,
     )

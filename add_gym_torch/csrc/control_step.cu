@@ -6,7 +6,8 @@
 // ceil(N / 128); threads past N return at once.  Two entry points, one per
 // variant of the per-env function: agt_control_step (shared gains) and
 // agt_control_step_dr (per-env gains, friction and mass scale in the input
-// block).
+// block).  Both take n_np, the count of bodies with held narrowphase rows
+// at the end of the input block (0: none).
 //
 // Built by hand with nvcc into a shared library with a plain C interface
 // and loaded with ctypes (add_gym_torch/physics/cuda_step.py):
@@ -33,7 +34,7 @@ extern "C" int agt_max_bodies() { return AGT_MAX_BODIES; }
 
 template <bool kPerEnv>
 static int agt_launch(const float* fbuf, const int* ibuf, int nb, int nd, int ncp, int nsph,
-                      int npair, int substeps, const float* in, float* out, int n,
+                      int npair, int substeps, int n_np, const float* in, float* out, int n,
                       void* stream) {
   if (n <= 0) return 0;
   AgtModel m;
@@ -45,6 +46,7 @@ static int agt_launch(const float* fbuf, const int* ibuf, int nb, int nd, int nc
   m.nsph = nsph;
   m.npair = npair;
   m.substeps = substeps;
+  m.n_np = n_np;
   dim3 grid((n + AGT_THREADS - 1) / AGT_THREADS);
   agt_control_step_kernel<kPerEnv><<<grid, AGT_THREADS, 0, (cudaStream_t)stream>>>(m, in, out, n);
   return (int)cudaGetLastError();
@@ -52,15 +54,18 @@ static int agt_launch(const float* fbuf, const int* ibuf, int nb, int nd, int nc
 
 // Launch on `stream` (a cudaStream_t), allocate nothing, do not
 // synchronise.  Return cudaGetLastError() after the launch (0 = ok).
-// `in` has 13 + 4*nd rows (main) or 15 + 6*nd rows (per-env variant).
+// `in` has 13 + 4*nd rows (main) or 15 + 6*nd rows (per-env variant), plus
+// 6*n_np narrowphase rows.
 extern "C" int agt_control_step(const float* fbuf, const int* ibuf, int nb, int nd, int ncp,
-                                int nsph, int npair, int substeps, const float* in, float* out,
-                                int n, void* stream) {
-  return agt_launch<false>(fbuf, ibuf, nb, nd, ncp, nsph, npair, substeps, in, out, n, stream);
+                                int nsph, int npair, int substeps, int n_np, const float* in,
+                                float* out, int n, void* stream) {
+  return agt_launch<false>(fbuf, ibuf, nb, nd, ncp, nsph, npair, substeps, n_np, in, out, n,
+                           stream);
 }
 
 extern "C" int agt_control_step_dr(const float* fbuf, const int* ibuf, int nb, int nd, int ncp,
-                                   int nsph, int npair, int substeps, const float* in,
+                                   int nsph, int npair, int substeps, int n_np, const float* in,
                                    float* out, int n, void* stream) {
-  return agt_launch<true>(fbuf, ibuf, nb, nd, ncp, nsph, npair, substeps, in, out, n, stream);
+  return agt_launch<true>(fbuf, ibuf, nb, nd, ncp, nsph, npair, substeps, n_np, in, out, n,
+                          stream);
 }

@@ -2,23 +2,30 @@
 // kernel in control_step.cu.
 //
 // Replaces add_gym_tpu/physics/pallas_step.py::_control_step_kernel in two
-// variants (held narrowphase rows are not ported):
+// variants, each with or without the held narrowphase rows:
 //   * main: shared PD gains and friction from the model buffer, no mass
 //     scale;
 //   * per-env (domain randomization, the Pallas kernel's per-env kp/kv/mu
 //     blocks with `use_ms`): kp[nd], kv[nd], mu and the mass scale ms come
 //     from env-minor rows after the state in the input block.  ms
 //     multiplies the ground contact (reported and applied), the summed
-//     ground + held self-collision wrenches, the articulated-inertia blocks
-//     and the bias forces, as fused_step._substep_core does.
+//     ground + held wrenches, the articulated-inertia blocks and the bias
+//     forces, as fused_step._substep_core does.
+//   * narrowphase rows (the Pallas kernel's `np_bodies` input): n_np > 0
+//     touched bodies, listed in the i32 buffer, each with 6 env-minor rows
+//     (torque 3, force 3; world frame, about the body origin) after the
+//     state and per-env rows.  They are computed outside the kernel
+//     (fused_step.compute_np_ext) and added to the held self-collision
+//     wrenches of their bodies, so they are held across the substeps and
+//     scaled by ms with the rest.  n_np = 0 is the kernel without them.
 // Both variants are one template (AgtEnvParams<kPerEnv>); the main one
 // reads its gains and friction from the model buffer and scales nothing.
 // Its plain version is add_gym_torch/physics/fused_step.py::fused_step;
 // the two compute the same function:
 //   1. PD target: clamp to the joint limits +- position_limit_margin, then
 //      slew-limit by +- max_target_delta against the previous target.
-//   2. Held self-collision: FK of the INPUT state, sphere-pair penalty
-//      forces, held constant across the substeps.
+//   2. Held wrenches: FK of the INPUT state, sphere-pair penalty forces,
+//      plus the narrowphase rows; held constant across the substeps.
 //   3. `substeps` x substep: FK and body velocities; per-point ground
 //      contact (spring-damper normal, Coulomb friction with an impulse
 //      clamp); joint torques with limit springs; a three-pass articulated-
@@ -39,8 +46,8 @@
 // 11 KB for 30 bodies) is far beyond 255 registers, so it lives in local
 // memory and streams through L1/L2.  The kernel is therefore bound by that
 // local-memory traffic and by f32 arithmetic, not by its state I/O
-// (13 + 4*nd floats in, plus 2*nd + 2 in the per-env variant, 13 + 3*nd +
-// nb out per env).  A cooperative layout
+// (13 + 4*nd floats in, plus 2*nd + 2 in the per-env variant and 6*n_np
+// narrowphase rows, 13 + 3*nd + nb out per env).  A cooperative layout
 // (a warp per env, blocks in shared memory) is the way past that bound.
 //
 // AGT_HD marks the functions for both compilers: nvcc builds them into
@@ -67,7 +74,8 @@
 //   points   [ncp][AGT_PT]:    pos[3] radius k b stick_mass (CSR by body)
 //   spheres  [nsph][AGT_SPH]:  pos[3] radius
 //   pairs    [npair][AGT_PAIR]: radius_sum k_sc b_sc
-// i32 buffer: parent[nb], cp_start[nb + 1], sph_body[nsph], pair[npair][2]
+// i32 buffer: parent[nb], cp_start[nb + 1], sph_body[nsph], pair[npair][2],
+//             np_body[n_np] (sorted bodies of the narrowphase rows)
 #define AGT_HDR 8
 #define AGT_BODY 52
 #define AGT_DOF 7
@@ -78,7 +86,7 @@
 struct AgtModel {
   const float* f;
   const int* ib;
-  int nb, nd, ncp, nsph, npair, substeps;
+  int nb, nd, ncp, nsph, npair, substeps, n_np;
 };
 
 // ------------------------------------------------------------ 3x3 helpers
@@ -150,7 +158,7 @@ struct AgtEnvScratch {
   float Ub[AGT_MAX_BODIES][3];
   float dinv[AGT_MAX_BODIES];
   float u[AGT_MAX_BODIES];
-  float scn[AGT_MAX_BODIES][3];  // held self-collision torque / force (world)
+  float scn[AGT_MAX_BODIES][3];  // held self-collision + narrowphase torque / force (world)
   float scf[AGT_MAX_BODIES][3];
   float q[AGT_MAX_BODIES], qd[AGT_MAX_BODIES], tgt[AGT_MAX_BODIES], tau[AGT_MAX_BODIES];
 };
@@ -485,10 +493,24 @@ AGT_HD void agt_substep(const AgtModel& m, const AgtEnvParams<kPerEnv>& P, AgtEn
   rq[3] = z * sign * nrm;
 }
 
+// Add the narrowphase rows (`rows`: 6 per touched body, env-minor, env
+// offset applied) into the held wrenches: torque rows 0-2, force rows 3-5.
+AGT_HD void agt_add_np_rows(const AgtModel& m, AgtEnvScratch& s, const float* rows, int n) {
+  const int* np_body = m.ib + 2 * m.nb + 1 + m.nsph + 2 * m.npair;
+  for (int j = 0; j < m.n_np; ++j) {
+    int b = np_body[j];
+    const float* r = rows + 6 * j * n;
+    for (int k = 0; k < 3; ++k) {
+      s.scn[b][k] += r[k * n];
+      s.scf[b][k] += r[(3 + k) * n];
+    }
+  }
+}
+
 // One control step for env e.  `in` rows (env-minor, N = n):
 //   root_pos 3, root_quat 4, root_vel 3, root_ang_vel 3, q nd, qd nd,
 //   prev_target nd, command nd; the per-env variant then kp nd, kv nd,
-//   mu 1, ms 1
+//   mu 1, ms 1; then 6 narrowphase rows for each of the n_np bodies
 // `out` rows: root_pos 3, root_quat 4, root_vel 3, root_ang_vel 3, q nd,
 //   qd nd, applied target nd, contact nb
 template <bool kPerEnv = false>
@@ -539,6 +561,10 @@ AGT_HD void agt_control_step_env(const AgtModel& m, AgtEnvScratch& s, const floa
   } else {
     for (int i = 0; i < m.nb; ++i)
       for (int k = 0; k < 3; ++k) s.scn[i][k] = s.scf[i][k] = 0.0f;
+  }
+  if (m.n_np > 0) {
+    const int np_row = 13 + 4 * nd + (kPerEnv ? 2 * nd + 2 : 0);
+    agt_add_np_rows(m, s, in + np_row * n, n);
   }
 
   float* contact = out + (13 + 3 * nd) * n;

@@ -3,10 +3,12 @@
 Counterpart of ``add_gym_tpu/envs/imitation.py``: one ``EnvState`` of
 ``[N, ...]`` tensors and the functions the train rollout runs on it:
 ``reset_where`` (masked reset to sampled reference poses, with fresh
-domain-randomization draws when it is on), ``compute_obs`` and
-``rollout_step_cached`` (physics step with the per-env parameters and the
-latency blend of domain randomization, reward, done, masked reset and both
-observation passes, with the incremental motion-row window).
+domain-randomization draws when it is on), ``compute_obs``, ``step``
+(physics step with the per-env parameters and the latency blend of domain
+randomization, reward and done) and ``rollout_step_cached`` (the same step,
+masked reset and both observation passes, with the incremental motion-row
+window; for non-consecutive ``tar_obs_steps`` it composes ``step``,
+``reset_where`` and ``compute_obs`` on the same presampled draws).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from add_gym_torch.motion.motion_lib import MotionLib
 from add_gym_torch.physics.engine import EngineParams, SimState, default_state
 from add_gym_torch.physics.fused_step import FusedModelConstants
 from add_gym_torch.physics.model import PhysicsModel
+from add_gym_torch.utils.device import resolve_device
 
 
 @dataclass(frozen=True)
@@ -106,9 +109,13 @@ def _where_env(mask, new, old):
 class ImitationEnv:
     """Binds model + motion data + config; all runtime data lives in ``EnvState``.
 
-    ``kernel=True`` steps the physics through the CUDA kernel
-    (``physics/cuda_step.py``), ``kernel=False`` through the plain torch
-    step (``physics/fused_step.py``).
+    Physics backends (the same function, held to each other by the tests
+    and by ``utils/debug.parity_check``): ``kernel=True`` steps through the
+    CUDA kernel (``physics/cuda_step.py``); otherwise ``fused=True`` through
+    the plain env-minor step (``physics/fused_step.py``) and
+    ``fused=False`` through the reference-layout engine
+    (``physics/engine.py``), which the kernel cannot be.  ``device``
+    defaults to the card and raises where there is none.
     """
 
     def __init__(
@@ -118,10 +125,13 @@ class ImitationEnv:
         engine_params: EngineParams,
         task: TaskConfig = TaskConfig(),
         kernel: bool = False,
-        device="cpu",
+        fused: bool = True,
+        device="cuda",
         dr: DRConfig = DRConfig(),
     ):
-        self.device = torch.device(device)
+        if kernel and not fused:
+            raise ValueError("the control-step kernel is a fused backend: kernel needs fused=True")
+        self.device = resolve_device(device)
         self.model = model
         self.motion = motion
         self.params = engine_params
@@ -129,12 +139,17 @@ class ImitationEnv:
         self.dr = dr
         self.ctrl_dt = engine_params.ctrl_dt
         self.kernel = kernel
+        self.fused = fused
         self._fc = FusedModelConstants(model)
         if kernel:
-            from add_gym_torch.physics.cuda_step import cuda_step as step_fn
+            from add_gym_torch.physics.cuda_step import cuda_step
+            self._step_fn = lambda p, s, t: cuda_step(self._fc, p, s, t)
+        elif fused:
+            from add_gym_torch.physics.fused_step import fused_step
+            self._step_fn = lambda p, s, t: fused_step(self._fc, p, s, t)
         else:
-            from add_gym_torch.physics.fused_step import fused_step as step_fn
-        self._step_fn = lambda p, s, t: step_fn(self._fc, p, s, t)
+            from add_gym_torch.physics.engine import step as engine_step
+            self._step_fn = lambda p, s, t: engine_step(self.model, p, s, t)
 
         contact_set = set(task.contact_bodies)
         self.noncontact_mask = torch.as_tensor(
@@ -232,6 +247,42 @@ class ImitationEnv:
             pd_target = (1.0 - a) * pd_target + a * state.sim.pd_target
         return self._step_fn(self._effective_params(state), state.sim, pd_target)
 
+    def step(self, state: EnvState, pd_target):
+        """Physics step + task update.
+
+        Returns (state, obs, disc_obs, disc_obs_demo, reward, done).
+        """
+        sim, body_contact = self._physics(state, pd_target)
+        time = state.time + self.ctrl_dt
+        state = self._push_history(replace(state, sim=sim, time=time))
+
+        # reference frame at the current motion time
+        mt = self.motion_times(state)
+        ref = self.motion.get_motion_step(state.motion_ids, mt)
+
+        obs = self.compute_obs(state)
+        disc_obs = self._disc_obs_from_hist(state)
+        disc_obs_demo = self._disc_obs_demo(state.motion_ids, mt)
+        reward = self._reward(sim, ref)
+
+        meta = self.motion.meta_all[state.motion_ids]      # [N, 7]
+        done = self._done(time, sim, ref, body_contact, mt, meta)
+        state = replace(state, done=done)
+        return state, obs, disc_obs, disc_obs_demo, reward, done
+
+    def _done(self, time, sim: SimState, ref, body_contact, mt, meta):
+        t = self.task
+        return compute_done(
+            time, sim.root_pos, sim.dof_pos, ref[0], ref[4], body_contact,
+            mt, meta[:, 0], meta[:, 1] == 0.0,
+            ep_len=t.max_episode_length,
+            noncontact_body_mask=self.noncontact_mask,
+            pose_termination=t.pose_termination,
+            pose_termination_dist=t.pose_termination_dist,
+            enable_early_termination=t.enable_early_termination,
+            track_root=t.track_root,
+        )
+
     def _window_offsets(self, dtype=torch.float32):
         """Time offsets of the motion-row window relative to the current
         motion time: H history rows (oldest -> newest) then K target rows."""
@@ -281,6 +332,11 @@ class ImitationEnv:
         ``times_f`` / ``dr`` (a dict of [N] tensors, see
         ``domain_rand.sample_dr``) are the reset draws for envs that finish
         this step.  Returns ``(state3, obs_after, aux3, out)``.
+
+        Non-consecutive ``tar_obs_steps`` have no incremental window: the
+        step then composes :meth:`step`, :meth:`reset_where` and
+        :meth:`compute_obs` on the same draws, ``aux`` is not read and
+        ``aux3`` is None.
         """
         task = self.task
         N = state.time.shape[0]
@@ -288,9 +344,16 @@ class ImitationEnv:
         K = len(self.tar_steps) if task.enable_tar_obs else 0
         dt = self.ctrl_dt
         if not self._aux_shiftable:
-            raise ValueError(
-                f"rollout_step_cached needs consecutive tar_obs_steps, got {tuple(self.tar_steps)}"
+            state2, next_obs, disc_obs, disc_obs_demo, reward, done = self.step(state, pd_target)
+            out = dict(
+                reward=reward, done=done, disc_obs=disc_obs,
+                disc_obs_demo=disc_obs_demo, motion_ids=state.motion_ids,
+                motion_times=self.motion_times(state2), ep_time=state2.time,
+                next_obs=next_obs,
             )
+            reset = done != int(DoneFlags.NULL)
+            state3 = self.reset_where(state2, reset, None, draws=(ids_f, times_f, dr))
+            return state3, self.compute_obs(state3), None, out
 
         # --- physics --------------------------------------------------
         sim, body_contact = self._physics(state, pd_target)
@@ -313,16 +376,7 @@ class ImitationEnv:
         reward = self._reward(sim, ref)
 
         meta = self.motion.meta_all[ids]                   # [N, 7]
-        done = compute_done(
-            time, sim.root_pos, sim.dof_pos, ref[0], ref[4], body_contact,
-            mt, meta[:, 0], meta[:, 1] == 0.0,
-            ep_len=task.max_episode_length,
-            noncontact_body_mask=self.noncontact_mask,
-            pose_termination=task.pose_termination,
-            pose_termination_dist=task.pose_termination_dist,
-            enable_early_termination=task.enable_early_termination,
-            track_root=task.track_root,
-        )
+        done = self._done(time, sim, ref, body_contact, mt, meta)
         state2 = replace(state2, done=done)
 
         out = dict(

@@ -9,6 +9,9 @@ for CPU tensors it runs the plain version, ``fused_step.fused_step``.
 Parameters with per-env leaves (domain randomization: ``kp``/``kv``
 ``[N, nd]``, ``friction_mu`` ``[N]``, a mass scale) go to the kernel's
 per-env variant, the rest to its main variant; each counts its launches.
+A model with narrowphase tables (``model.attach_geoms``) sends the held
+narrowphase wrenches of ``fused_step.compute_np_ext`` into either variant
+as ``6 * n_np`` extra input rows, counted as well.
 
 The kernel is built at first use with ``nvcc`` into a shared library with a
 plain C interface under ``build/add_gym_torch/`` beside the package (the
@@ -17,8 +20,9 @@ and is bound with ``ctypes``.  Model constants travel as two packed device
 buffers (:func:`pack_model`), cached per model and shared parameters;
 the per-env state crosses in one env-minor ``[13 + 4 nd, N]`` block (the
 per-env variant appends ``kp``/``kv`` ``[nd]``, ``mu`` and ``ms`` rows:
-``[15 + 6 nd, N]``, so per-env values never enter the cached buffers) and
-comes back in one ``[13 + 3 nd + nb, N]`` block.
+``[15 + 6 nd, N]``, so per-env values never enter the cached buffers; the
+narrowphase rows come last) and comes back in one ``[13 + 3 nd + nb, N]``
+block.
 """
 
 from __future__ import annotations
@@ -33,7 +37,9 @@ import numpy as np
 import torch
 
 from add_gym_torch.physics.engine import EngineParams, SimState, is_per_env, mass_scale_or_none
-from add_gym_torch.physics.fused_step import FusedModelConstants, fused_step
+from add_gym_torch.physics.fused_step import (
+    FusedModelConstants, compute_np_ext, fused_step, np_rows,
+)
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -98,8 +104,8 @@ def _library():
             fn.restype = ctypes.c_int
             fn.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
             ]
         lib.agt_max_bodies.restype = ctypes.c_int
         lib.agt_max_bodies.argtypes = []
@@ -111,7 +117,7 @@ def pack_model(fc: FusedModelConstants, params: EngineParams, per_env: bool | No
     """Host buffers of the kernel's model constants.
 
     Returns (fbuf f32, ibuf i32, counts) with counts = (nb, nd, ncp, nsph,
-    npair, substeps); the layout is documented in control_step.cuh.  For
+    npair, substeps, n_np); the layout is documented in control_step.cuh.  For
     the per-env variant (``per_env``, by default ``is_per_env(params)``)
     the shared kp/kv/mu slots hold 0: it reads them from its input block.
     """
@@ -147,9 +153,10 @@ def pack_model(fc: FusedModelConstants, params: EngineParams, per_env: bool | No
     ).astype(np.float32)
     cp_start = np.searchsorted(fc.cp_body, np.arange(nb + 1))
     ibuf = np.concatenate(
-        [fc.parent, cp_start, fc.sc_body, pairs.ravel()]
+        [fc.parent, cp_start, fc.sc_body, pairs.ravel(), fc.np_bodies]
     ).astype(np.int32)
-    counts = (nb, nd, len(fc.cp_body), len(fc.sc_body), len(pairs), int(params.substeps))
+    counts = (nb, nd, len(fc.cp_body), len(fc.sc_body), len(pairs), int(params.substeps),
+              len(fc.np_bodies))
     return fbuf, ibuf, counts
 
 
@@ -200,10 +207,12 @@ def per_env_rows(params: EngineParams, n: int, nd: int, device):
 
 
 def pack_state(state: SimState, pd_target, params: EngineParams | None = None,
-               per_env: bool | None = None):
+               per_env: bool | None = None, np_ext=None):
     """Env-minor input block (f32, contiguous): [13 + 4 nd, N], or for the
-    per-env variant [15 + 6 nd, N] with ``params``' rows appended.
-    ``per_env`` defaults to ``is_per_env(params)``."""
+    per-env variant [15 + 6 nd, N] with ``params``' rows appended, then the
+    held narrowphase wrenches ``np_ext`` (``fused_step.compute_np_ext``) as
+    ``6 * len(np_ext)`` rows.  ``per_env`` defaults to
+    ``is_per_env(params)``."""
     rows = [state.root_pos.T, state.root_quat.T, state.root_vel.T, state.root_ang_vel.T,
             state.dof_pos.T, state.dof_vel.T, state.pd_target.T, pd_target.T]
     if per_env is None:
@@ -211,6 +220,8 @@ def pack_state(state: SimState, pd_target, params: EngineParams | None = None,
     if per_env:
         n, nd = state.dof_pos.shape
         rows.append(per_env_rows(params, n, nd, state.root_pos.device))
+    if np_ext is not None:
+        rows.append(np_rows(np_ext))
     return torch.cat(rows, dim=0).contiguous()
 
 
@@ -230,15 +241,16 @@ def launch_control_step(fc: FusedModelConstants, params: EngineParams, inp,
     ``per_env`` (by default ``is_per_env(params)``) picks the variant:
     ``inp`` is a contiguous f32 CUDA tensor (see :func:`pack_state`) of
     [13 + 4 nd, N] rows for the main variant, [15 + 6 nd, N] for the
-    per-env one.  Launches on the current stream; raises if the launch
-    fails.  Does not count launches (see :func:`cuda_step`).
+    per-env one, each plus 6 narrowphase rows per body of ``fc.np_bodies``.
+    Launches on the current stream; raises if the launch fails.  Does not
+    count launches (see :func:`cuda_step`).
     """
     if not inp.is_cuda or inp.dtype != torch.float32 or not inp.is_contiguous():
         raise ValueError("control step kernel takes a contiguous f32 CUDA tensor")
     nb, nd = fc.nb, fc.nd
     if per_env is None:
         per_env = is_per_env(params)
-    want = 15 + 6 * nd if per_env else 13 + 4 * nd
+    want = (15 + 6 * nd if per_env else 13 + 4 * nd) + 6 * len(fc.np_bodies)
     if inp.shape[0] != want:
         raise ValueError(f"input block has {inp.shape[0]} rows, expected {want}")
     lib = _library()
@@ -263,19 +275,25 @@ def cuda_step(fc: FusedModelConstants, params: EngineParams, state: SimState, pd
 
     CUDA tensors go through the kernel: shared parameters through the main
     variant (``cuda_step.launches`` counts its launches), per-env ones
-    through the per-env variant (``cuda_step.dr_launches``).  CPU tensors
+    through the per-env variant (``cuda_step.dr_launches``); a launch with
+    narrowphase rows counts in ``cuda_step.np_launches`` too.  CPU tensors
     go through the plain version.
     """
     if not state.root_pos.is_cuda:
         return fused_step(fc, params, state, pd_target)
     per_env = is_per_env(params)
-    out = launch_control_step(fc, params, pack_state(state, pd_target, params, per_env), per_env)
+    np_ext = compute_np_ext(fc, params, params.ctrl_dt / params.substeps, state)
+    inp = pack_state(state, pd_target, params, per_env, np_ext)
+    out = launch_control_step(fc, params, inp, per_env)
     if per_env:
         cuda_step.dr_launches += 1
     else:
         cuda_step.launches += 1
+    if np_ext is not None:
+        cuda_step.np_launches += 1
     return unpack_state(out, fc.nd)
 
 
 cuda_step.launches = 0
 cuda_step.dr_launches = 0
+cuda_step.np_launches = 0

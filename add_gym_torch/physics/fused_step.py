@@ -17,6 +17,11 @@ Per-env parameters (domain randomization) enter as ``kp``/``kv``
 multiplies the contact and held self-collision forces (after their sum),
 the articulated-inertia blocks and the bias forces, as in the JAX
 package's ``_substep_core``.
+
+A model with narrowphase tables (``model.attach_geoms``) adds held
+per-body wrenches from :func:`compute_np_ext` to the held self-collision
+ones, once per control step on the pre-step state: the plain version of
+the CUDA kernel's narrowphase input rows.
 """
 
 from __future__ import annotations
@@ -27,9 +32,11 @@ import numpy as np
 import torch
 
 from add_gym_torch.physics.engine import (
-    EngineParams, SimState, apply_pd_target, mass_scale_or_none,
+    EngineParams, SimState, _body_world_velocities, apply_pd_target, forward_kinematics,
+    mass_scale_or_none, narrowphase_f_ext,
 )
 from add_gym_torch.physics.model import PhysicsModel
+from add_gym_torch.physics.narrowphase import touched_bodies
 
 # --------------------------------------------------------------------------
 # stacked helpers over [..., 3, N] vectors and [..., 3, 3, N] matrices
@@ -156,6 +163,9 @@ class FusedModelConstants:
         self.sc_radius = np.asarray(model.sc_radius, np.float64)
         self.sc_pairs = np.asarray(model.sc_pairs, np.int32).reshape(-1, 2)
         self.sc_stiff_mass = np.asarray(model.sc_stiff_mass, np.float64)
+        # bodies with held narrowphase wrenches (sorted; empty without
+        # capsule or geom tables)
+        self.np_bodies = touched_bodies(model.capsules, model.geoms)
         self._dev = {}
 
     def contact_gains(self, params: EngineParams, dt: float):
@@ -333,7 +343,7 @@ def _substep_core(
     q,           # [nd, N]
     qd,          # [nd, N]
     tgt,         # [nd, N]
-    sc_ext=None,  # (n [nb,3,N], f [nb,3,N]) held self-collision forces
+    sc_ext=None,  # (n [nb,3,N], f [nb,3,N]) held self-collision + narrowphase forces
     ms=None,      # [N] per-env mass/inertia scale (None = 1)
 ):
     """One physics substep on stacked env-minor tensors.
@@ -589,6 +599,79 @@ def compute_sc_ext(fc: FusedModelConstants, params: EngineParams, dt, state: Sim
     return _sc_forces_stacked(fc, params, dt, W, o, omega, vel)
 
 
+def compute_np_ext(fc: FusedModelConstants, params: EngineParams, dt, state: SimState):
+    """Held capsule/geom narrowphase wrenches for a control step (or None).
+
+    Evaluates the reference-layout narrowphase (``engine.narrowphase_f_ext``
+    over ``[N, nb]`` FK of ``state``) and returns ``{body: (n [3, N], f
+    [3, N])}`` over ``fc.np_bodies``, the static sorted set of bodies any
+    pair table can touch: the kernel's ``6 * len(np_bodies)`` input rows
+    (:func:`np_rows`).  The per-body sums run in a fixed order
+    (``spatial.index_sum``), so the result is the same bits on every run.
+    """
+    if not len(fc.np_bodies):
+        return None
+    model = fc.model
+    body_pos, body_rot = forward_kinematics(model, state)
+    omega_w, v_origin_w = _body_world_velocities(model, state, body_rot)
+    f_ext = narrowphase_f_ext(model, params, body_pos, body_rot, omega_w, v_origin_w, dt)
+    rows = f_ext[:, torch.as_tensor(fc.np_bodies, device=f_ext.device)].permute(1, 2, 0)
+    return {int(b): (rows[j, 0:3], rows[j, 3:6]) for j, b in enumerate(fc.np_bodies)}
+
+
+def np_rows(np_ext):
+    """The held wrenches as env-minor rows [6 * n_touched, N]: per body in
+    sorted order, torque rows 0-2 then force rows 3-5."""
+    return torch.cat([torch.cat(np_ext[b], dim=0) for b in sorted(np_ext)], dim=0)
+
+
+def merge_ext(a, b):
+    """Merge two {body: (n, f)} held-force dicts (either may be None)."""
+    if a is None:
+        return b
+    if b is None:
+        return a
+    out = dict(a)
+    for k, (n_c, f_c) in b.items():
+        if k in out:
+            n0, f0 = out[k]
+            out[k] = (n0 + n_c, f0 + f_c)
+        else:
+            out[k] = (n_c, f_c)
+    return out
+
+
+def _held_ext(fc: FusedModelConstants, params: EngineParams, dt, state: SimState):
+    """Held self-collision plus narrowphase wrenches as stacked
+    (n [nb, 3, N], f [nb, 3, N]), or None when there are neither."""
+    sc_ext = compute_sc_ext(fc, params, dt, state)
+    np_ext = compute_np_ext(fc, params, dt, state)
+    if np_ext is None:
+        return sc_ext
+    # self-collision first, then narrowphase: the kernel's order of addition
+    held = merge_ext(None if sc_ext is None else dict(enumerate(zip(*sc_ext))), np_ext)
+    zero = state.root_pos.new_zeros((3, state.root_pos.shape[0]))
+    per_body = [held.get(b, (zero, zero)) for b in range(fc.nb)]
+    return torch.stack([n for n, _ in per_body]), torch.stack([f for _, f in per_body])
+
+
+def fused_substep(fc: FusedModelConstants, params: EngineParams, state: SimState, dt):
+    """One physics substep, stacked env-minor layout, with the held forces
+    evaluated on ``state``.  Returns (state, body_contact [N, nb])."""
+    kp, kv, mu, ms = _prep_params(params, state.root_pos.device)
+    rp, rq, rv, ra, q, qd, contact = _substep_core(
+        fc, params, kp, kv, mu, dt,
+        state.root_pos.T, state.root_quat.T, state.root_vel.T, state.root_ang_vel.T,
+        state.dof_pos.T, state.dof_vel.T, state.pd_target.T,
+        sc_ext=_held_ext(fc, params, dt, state), ms=ms,
+    )
+    new_state = SimState(
+        root_pos=rp.T, root_quat=rq.T, root_vel=rv.T, root_ang_vel=ra.T,
+        dof_pos=q.T, dof_vel=qd.T, pd_target=state.pd_target,
+    )
+    return new_state, contact.T
+
+
 def fused_step(fc: FusedModelConstants, params: EngineParams, state: SimState, pd_target):
     """Control step: PD clamp/slew + ``substeps`` substeps.
 
@@ -599,7 +682,7 @@ def fused_step(fc: FusedModelConstants, params: EngineParams, state: SimState, p
     state = replace(state, pd_target=tgt)
     dt = params.ctrl_dt / params.substeps
     kp, kv, mu, ms = _prep_params(params, state.root_pos.device)
-    sc_ext = compute_sc_ext(fc, params, dt, state)
+    sc_ext = _held_ext(fc, params, dt, state)
 
     rp, rq, rv, ra = state.root_pos.T, state.root_quat.T, state.root_vel.T, state.root_ang_vel.T
     q, qd, tg = state.dof_pos.T, state.dof_vel.T, tgt.T

@@ -8,12 +8,14 @@ Collision handling is point-based: every collidable geom contributes a
 small set of contact points (explicit sphere geoms as-is; cylinder and
 capsule ends; box corners; mesh AABB corners from the STL), tested against
 the ground plane.  Self-collision uses spheres fitted to the collision AABB
-of curated body groups.  The optional narrowphase tables of the JAX package
-(``attach_capsules`` / ``attach_geoms``) are not part of this port yet.
+of curated body groups.  The optional narrowphase tables
+(:func:`attach_capsules` / :func:`attach_geoms`, ``physics/narrowphase.py``)
+widen contacts to capsule pairs or to all collision primitives.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import xml.etree.ElementTree as ET
 from dataclasses import dataclass
@@ -73,6 +75,16 @@ class PhysicsModel:
 
     body_names: list
     joint_names: list  # [nd] MJCF joint names (hinges, BFS order)
+
+    # optional capsule-capsule narrowphase pair table (physics/narrowphase
+    # .py), evaluated by the reference-layout engine; opt in with
+    # attach_capsules()
+    capsules: object = None
+    # optional general geom-geom narrowphase tables (sphere/capsule/
+    # cylinder/box; narrowphase.GeomSet), held per control step on every
+    # backend; opt in with attach_geoms() (supersedes ``capsules``: do not
+    # attach both)
+    geoms: object = None
 
     @property
     def nb(self) -> int:
@@ -179,6 +191,40 @@ def _geom_contact_points(geom, meshdir):
         return pts
 
     raise ValueError(f"Unsupported geom type: {gtype}")
+
+
+def attach_capsules(model: PhysicsModel, mjcf_path: str,
+                    exclude_adjacent: bool = True) -> PhysicsModel:
+    """Opt a model into capsule-capsule narrowphase contacts.
+
+    Parses the MJCF's capsule/cylinder collision geoms into a static pair
+    table (physics/narrowphase.py).  Returns a new model; the default model
+    keeps ``capsules=None``.
+    """
+    from add_gym_torch.physics.narrowphase import parse_capsules
+
+    caps = parse_capsules(mjcf_path, model.body_names, model.mass, exclude_adjacent)
+    return dataclasses.replace(model, capsules=caps)
+
+
+def attach_geoms(model: PhysicsModel, mjcf_path: str,
+                 exclude_adjacent: bool = True,
+                 prune_rest: bool = True) -> PhysicsModel:
+    """Opt a model into general geom-geom narrowphase contacts.
+
+    Parses all primitive collision geoms (sphere/capsule/cylinder/box, plus
+    mesh geoms as their STL-AABB boxes) into static pair tables
+    (narrowphase.GeomSet).  ``prune_rest`` drops pairs already proximate at
+    the zero pose (boxes of neighbouring links overlap at rest and would
+    fight the stance).  Returns a new model; the default model keeps
+    ``geoms=None``.
+    """
+    from add_gym_torch.physics.narrowphase import parse_geoms, rest_pose_prune
+
+    gs = parse_geoms(mjcf_path, model.body_names, model.mass, exclude_adjacent)
+    if prune_rest:
+        gs = rest_pose_prune(gs, model.parent, model.local_pos, model.local_quat)
+    return dataclasses.replace(model, geoms=gs)
 
 
 def build_physics_model(mjcf_path: str, char: CharModel | None = None) -> PhysicsModel:

@@ -2,8 +2,10 @@
 
     python -m add_gym_torch.profile_rollout            # one rollout_lean
     python -m add_gym_torch.profile_rollout --train    # one train_iter
+    python -m add_gym_torch.profile_rollout --train --narrowphase
 
-Builds the slice as ``chip_smoke.py`` does (config ``train``, the
+Builds the slice as ``chip_smoke.py`` does (config ``train``, with
+``engine.general_narrowphase`` under ``--narrowphase``, the
 G1-shaped fixture and a synthetic clip, 4096 envs, the default agent and
 32 steps per rollout), runs two warm-up calls, then one call timed with
 CUDA events and one under ``torch.profiler``.  Prints the call's wall
@@ -31,7 +33,7 @@ STEPS = 32
 TOP = 20
 
 
-def _device_rows(prof):
+def device_rows(prof):
     """(name, device µs, count) of every device-side op (kernels, copies,
     memsets); host-side aten ops, which the profiler also charges with
     their kernels' time, are left out so nothing counts twice."""
@@ -59,6 +61,7 @@ def main() -> int:
     cfg["task"]["motion_file"] = fx.write_motion_csv(
         os.path.join(fixtures, "g1_fixture_clip.motion"), seed=0, num_frames=300)
     cfg["engine"]["num_envs"] = NUM_ENVS
+    cfg["engine"]["general_narrowphase"] = "--narrowphase" in sys.argv[1:]
     env = build_env(cfg, device="cuda")
     agent = build_agent(cfg, env)
     ts = agent.init_train_state()
@@ -95,7 +98,7 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         call()
         torch.cuda.synchronize()
-    rows = _device_rows(prof)
+    rows = device_rows(prof)
     device_ms = sum(r[1] for r in rows) / 1e3
     kernel_ms = sum(r[1] for r in rows if "agt_control_step" in r[0]) / 1e3
     launches = sum(r[2] for r in rows)

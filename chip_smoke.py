@@ -18,6 +18,12 @@ Phases (any failure exits non-zero; nothing here catches its own error):
    the G1-shaped fixture at N=4096 and N=4000, 8 control steps, with
    per-env gains, friction and mass scale (``testing.per_env_params``: the ``dr_pod``
    ranges, mass widened to [0.5, 2.0]).
+   2c. The kernel with its held narrowphase rows (``np_bodies``): the
+   G1-shaped fixture with ``attach_geoms`` (637 pairs, 30 touched bodies,
+   180 rows), main and per-env variant, N=4096 and N=4000, 4 control steps
+   from states with the joints bent by 0.2 N(0, 1); the rows come from
+   ``fused_step.compute_np_ext`` and the plain version is ``fused_step``
+   with the tables.  Fails if every row is zero; logs the active pairs.
 3. The rollout: ``build_env`` / ``build_agent`` from config ``train`` on the
    G1-shaped fixture and a synthetic clip, 4096 envs, the default agent
    (``fc_3layers_1024units``, bf16 mixed precision), 32-step
@@ -26,7 +32,10 @@ Phases (any failure exits non-zero; nothing here catches its own error):
    per rollout.  Before that, a small check: the same 4-step f32 rollout
    at 64 envs through the kernel and through the plain step agrees.
 4. Times: CUDA events over 100 launches at 4096 envs on the G1-shaped
-   fixture, for each variant, beside the plain version and the bound.
+   fixture, for each variant and for the main variant with the
+   narrowphase rows, beside the plain version and the bound; and the time
+   of ``compute_np_ext`` per control step (the cost outside the kernel),
+   with its device op count from ``torch.profiler``.
 5. Training, config ``train`` (main variant): ``train_iter`` at 4096 envs
    x 32 steps, 5 epochs x 8 minibatches of 16,384, as ``bench.py`` times
    it: 2 warm-up iterations, one discarded 5-iteration ramp window, then
@@ -36,10 +45,16 @@ Phases (any failure exits non-zero; nothing here catches its own error):
 6. Training, config ``dr_pod`` (per-env variant) at 4096 envs: one warm-up
    and three timed iterations; exactly 32 per-env launches per iteration,
    finite infos, parameters that changed.
-7. The kernel line, the card's name and power limit, and the result line.
+7. Training, config ``train`` with ``engine.general_narrowphase=true`` at
+   4096 envs (the main variant with the narrowphase rows): one warm-up and
+   three timed iterations; exactly 32 launches with rows per iteration,
+   finite infos, parameters that changed; env-steps/s and peak memory.
+8. ``utils.debug.parity_check`` on that env at 256 envs: the kernel with
+   the rows against the reference-layout engine (``engine.step``).
+9. The kernel line, the card's name and power limit, and the result line.
 
-Each path (3, 5, 6) is driven with the launch counts set to 0 just before
-it and read just after.  Each log line starts with the seconds since the
+Each path (3, 5, 6, 7) is driven with the launch counts set to 0 just
+before it and read just after.  Each log line starts with the seconds since the
 start; the JSON lines, the card's line and the result line are printed
 bare.  The kernel-vs-plain ``train_iter`` check of ``dr_pod`` is a
 card-only test (``tests/test_torch_cuda.py``).  It imports nothing of JAX
@@ -61,12 +76,18 @@ import torch
 
 from add_gym_torch.builder import build_agent, build_env
 from add_gym_torch.physics import cuda_step as cs
+from add_gym_torch.physics import engine as eng
 from add_gym_torch.physics import testing as fx
 from add_gym_torch.physics.engine import EngineParams, SimState
-from add_gym_torch.physics.fused_step import FusedModelConstants, fused_step
-from add_gym_torch.physics.model import build_physics_model
+from add_gym_torch.physics.fused_step import (
+    FusedModelConstants, compute_np_ext, fused_step, np_rows,
+)
+from add_gym_torch.physics.model import attach_geoms, build_physics_model
+from add_gym_torch.physics.narrowphase import geom_f_ext
+from add_gym_torch.profile_rollout import device_rows
 from add_gym_torch.robot import build_pd_gains
 from add_gym_torch.utils.config import load_config
+from add_gym_torch.utils.debug import parity_check
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
@@ -78,6 +99,10 @@ TIMING_LAUNCHES = 100
 PLAIN_CALLS = 3           # the plain step takes ~0.25 s per call at 4096 envs on an H100
 MAIN_COMPARE_STEPS = 4    # phase 2 (the main variant)
 DR_COMPARE_STEPS = 8      # phase 2b (the per-env variant)
+NP_COMPARE_STEPS = 4      # phase 2c (the narrowphase rows)
+NP_EXT_CALLS = 20         # phase 4: compute_np_ext calls timed
+NP_TIMED = 3              # phase 7: timed train iterations
+PARITY_ENVS = 256         # phase 8
 TRAIN_WARMUP = 2          # bench.py's protocol: warm-up iterations,
 TRAIN_WINDOW = 5          # iterations per window,
 TRAIN_WINDOWS = 3         # timed windows after one discarded ramp window
@@ -95,13 +120,13 @@ def log(*args):
 
 
 def control_step_flops(nb: int, nd: int, ncp: int, npair: int, substeps: int,
-                       per_env: bool = False) -> int:
+                       per_env: bool = False, n_np: int = 0) -> int:
     """f32 operations per env of one control step, counted from
     csrc/control_step.cuh (a fused multiply-add counts as 2, a sqrt, a
     division or a transcendental as 1).  The per-env variant adds the mass
     scale's products: per body and substep the contact sum, the two summed
     wrenches (6), the A, B and D blocks (9 + 9 + 1) and the bias forces
-    (6)."""
+    (6).  The narrowphase rows add 6 additions per touched body."""
     fk = 45 + (nb - 1) * 134            # root rotation + per-joint FK and velocities
     contact = ncp * 63                  # per point: frame, velocity, normal, friction, torque
     pass1 = nb * 177                    # body velocities, bias forces, external forces
@@ -115,14 +140,15 @@ def control_step_flops(nb: int, nd: int, ncp: int, npair: int, substeps: int,
     pd = nd * 6                         # target clamp + slew limit
     if per_env:
         substep += nb * 32
-    return substeps * substep + held_sc + pd
+    return substeps * substep + held_sc + pd + 6 * n_np
 
 
-def control_step_bytes(fbuf, ibuf, n: int, nb: int, nd: int, per_env: bool = False) -> int:
+def control_step_bytes(fbuf, ibuf, n: int, nb: int, nd: int, per_env: bool = False,
+                       n_np: int = 0) -> int:
     """Bytes one launch must move: the input block (13 + 4 nd rows, plus
-    2 nd + 2 per-env rows), the output block (13 + 3 nd + nb rows) and the
-    model buffers, each once."""
-    rows_in = 13 + 4 * nd + (2 * nd + 2 if per_env else 0)
+    2 nd + 2 per-env rows and 6 n_np narrowphase rows), the output block
+    (13 + 3 nd + nb rows) and the model buffers, each once."""
+    rows_in = 13 + 4 * nd + (2 * nd + 2 if per_env else 0) + 6 * n_np
     return 4 * n * (rows_in + 13 + 3 * nd + nb) + fbuf.nbytes + ibuf.nbytes
 
 
@@ -130,8 +156,10 @@ def sim_state(fields, device):
     return SimState(**{k: torch.as_tensor(v, device=device) for k, v in fields.items()})
 
 
-def model_setup(path, gains):
+def model_setup(path, gains, geoms=False):
     model = build_physics_model(path)
+    if geoms:
+        model = attach_geoms(model, path)
     if gains == "g1":
         kp, kv = build_pd_gains(model)
     else:
@@ -149,11 +177,11 @@ def per_env(params, n, seed):
                                           for k, v in pe.items()})
 
 
-def compare_step(fc, params, state, cmd):
-    """One control step by the kernel (the variant ``params`` select) and by
-    the plain version from the same input; returns (plain next state, max
-    abs errors)."""
-    out = cs.launch_control_step(fc, params, cs.pack_state(state, cmd, params))
+def compare_step(fc, params, state, cmd, np_ext=None):
+    """One control step by the kernel (the variant ``params`` select, with
+    the narrowphase rows of ``np_ext``) and by the plain version from the
+    same input; returns (plain next state, max abs errors)."""
+    out = cs.launch_control_step(fc, params, cs.pack_state(state, cmd, params, None, np_ext))
     sk, ck = cs.unpack_state(out, fc.nd)
     sp, cp = fused_step(fc, params, state, cmd)
     torch.cuda.synchronize()
@@ -214,13 +242,63 @@ def phase_dr_kernel_vs_plain(g1_path):
     return worst
 
 
+def bent_state(model, n, seed):
+    """States with ground contact and the joints bent by 0.2 N(0, 1): the
+    narrowphase pairs of the G1-shaped fixture touch."""
+    fields, cmd = fx.random_sim_state(model, n, seed=seed, height=fx.G1_PELVIS_HEIGHT)
+    rng = np.random.default_rng(seed)
+    fields["dof_pos"] = np.clip(fields["dof_pos"] + 0.2 * rng.normal(size=fields["dof_pos"].shape),
+                                model.dof_limit[:, 0], model.dof_limit[:, 1]).astype(np.float32)
+    return sim_state(fields, DEVICE), torch.as_tensor(cmd, device=DEVICE)
+
+
+def active_pairs(model, params, state):
+    """Pairs of each narrowphase table that push, summed over the envs."""
+    body_pos, body_rot = eng.forward_kinematics(model, state)
+    omega, vel = eng._body_world_velocities(model, state, body_rot)
+    active = {}
+    geom_f_ext(model.geoms, body_pos, body_rot, omega, vel, params.ctrl_dt / params.substeps,
+               params.contact_timeconst, model.nb, active=active)
+    return {k: int(v.sum()) for k, v in active.items()}
+
+
+def phase_np_kernel_vs_plain(g1_path):
+    worst = {False: {}, True: {}}
+    for per in (False, True):
+        for n in (NUM_ENVS, 4000):
+            model, fc, params = model_setup(g1_path, "g1", geoms=True)
+            if per:
+                params = per_env(params, n, seed=n + 3)
+            state, cmd = bent_state(model, n, seed=n + 4)
+            pairs = active_pairs(model, params, state)
+            errs_all, row_max = {}, 0.0
+            dt = params.ctrl_dt / params.substeps
+            for _ in range(NP_COMPARE_STEPS):
+                np_ext = compute_np_ext(fc, params, dt, state)
+                row_max = max(row_max, np_rows(np_ext).abs().max().item())
+                state, errs = compare_step(fc, params, state, cmd, np_ext)
+                for k, v in errs.items():
+                    errs_all[k] = max(errs_all.get(k, 0.0), v)
+            if row_max == 0.0:
+                raise AssertionError("every narrowphase row is zero: no pair pushed")
+            log(f"[phase 2c] {'per-env' if per else 'main'} variant with narrowphase rows, "
+                f"g1_fixture N={n}: {model.geoms.num_pairs} pairs, {len(fc.np_bodies)} touched "
+                f"bodies, active pairs at the first step (summed over envs) {pairs}, "
+                f"largest row {row_max:.3e}; max abs err "
+                + " ".join(f"{k}={v:.3e}" for k, v in errs_all.items()))
+            for k, v in errs_all.items():
+                worst[per][k] = max(worst[per].get(k, 0.0), v)
+    return worst
+
+
 def _slice_cfg(g1_path, clip_path, num_envs, steps, mixed=None, kernel="auto", net=None,
-               name="train"):
+               name="train", general_narrowphase=False):
     cfg = load_config(name)
     cfg["robot"]["asset_path"] = g1_path
     cfg["task"]["motion_file"] = clip_path
     cfg["engine"]["num_envs"] = num_envs
     cfg["engine"]["kernel"] = kernel
+    cfg["engine"]["general_narrowphase"] = general_narrowphase
     cfg["agent"]["steps_per_iter"] = steps
     if mixed is not None:
         cfg["agent"]["mixed_precision"] = mixed
@@ -265,6 +343,7 @@ def phase_small_slice_check(g1_path, clip_path):
 def reset_counts():
     cs.cuda_step.launches = 0
     cs.cuda_step.dr_launches = 0
+    cs.cuda_step.np_launches = 0
 
 
 def phase_slice(g1_path, clip_path):
@@ -327,29 +406,56 @@ def _time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def phase_times(g1_path, dr: bool):
-    """(kernel ms/launch, plain ms/call, bound ms, bound by) of one variant."""
-    model, fc, params = model_setup(g1_path, "g1")
+def phase_times(g1_path, dr: bool, geoms: bool = False):
+    """(kernel ms/launch, plain ms/call, bound ms, bound by) of one variant;
+    with ``geoms`` the main variant with the narrowphase rows (the plain
+    version then computes them too), and the time and device ops of
+    ``compute_np_ext`` as a fifth entry."""
+    model, fc, params = model_setup(g1_path, "g1", geoms=geoms)
     if dr:
         params = per_env(params, NUM_ENVS, seed=8)
-    fields, cmd = fx.random_sim_state(model, NUM_ENVS, seed=7, height=fx.G1_PELVIS_HEIGHT)
-    state = sim_state(fields, DEVICE)
-    cmd = torch.as_tensor(cmd, device=DEVICE)
-    inp = cs.pack_state(state, cmd, params)
+    if geoms:
+        state, cmd = bent_state(model, NUM_ENVS, seed=9)
+    else:
+        fields, cmd = fx.random_sim_state(model, NUM_ENVS, seed=7, height=fx.G1_PELVIS_HEIGHT)
+        state, cmd = sim_state(fields, DEVICE), torch.as_tensor(cmd, device=DEVICE)
+    dt = params.ctrl_dt / params.substeps
+    np_ext = compute_np_ext(fc, params, dt, state)
+    inp = cs.pack_state(state, cmd, params, None, np_ext)
     kernel_ms = _time_ms(lambda: cs.launch_control_step(fc, params, inp), TIMING_LAUNCHES)
     plain_ms = _time_ms(lambda: fused_step(fc, params, state, cmd), PLAIN_CALLS)
 
     fbuf, ibuf, counts = cs.pack_model(fc, params)
-    nb, nd, ncp, nsph, npair, substeps = counts
-    flops = control_step_flops(nb, nd, ncp, npair, substeps, per_env=dr) * NUM_ENVS
-    io_bytes = control_step_bytes(fbuf, ibuf, NUM_ENVS, nb, nd, per_env=dr)
+    nb, nd, ncp, nsph, npair, substeps, n_np = counts
+    flops = control_step_flops(nb, nd, ncp, npair, substeps, per_env=dr, n_np=n_np) * NUM_ENVS
+    io_bytes = control_step_bytes(fbuf, ibuf, NUM_ENVS, nb, nd, per_env=dr, n_np=n_np)
     bound_ms = max(flops / PEAK_F32, io_bytes / PEAK_BYTES) * 1e3
     bound_by = "operations" if flops / PEAK_F32 >= io_bytes / PEAK_BYTES else "bytes"
-    log(f"[phase 4] {'per-env' if dr else 'main'} variant at N={NUM_ENVS}: kernel "
+    name = ("per-env" if dr else "main") + (" + narrowphase rows" if geoms else "")
+    log(f"[phase 4] {name} variant at N={NUM_ENVS}: kernel "
         f"{kernel_ms:.4f} ms/launch (CUDA events, {TIMING_LAUNCHES} launches), plain version "
         f"{plain_ms:.4f} ms/call ({PLAIN_CALLS} calls); bound {bound_ms:.5f} ms by {bound_by} "
-        f"({flops / NUM_ENVS:.0f} flops/env, {io_bytes} bytes)")
-    return kernel_ms, plain_ms, bound_ms, bound_by
+        f"({flops / NUM_ENVS:.0f} flops/env, {io_bytes} bytes, n_np={n_np})")
+    if not geoms:
+        return kernel_ms, plain_ms, bound_ms, bound_by
+
+    ext_ms = _time_ms(lambda: compute_np_ext(fc, params, dt, state), NP_EXT_CALLS)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        compute_np_ext(fc, params, dt, state)
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    ops, busy_ms = sum(r[2] for r in rows), sum(r[1] for r in rows) / 1e3
+    again = compute_np_ext(fc, params, dt, state)
+    same = all(torch.equal(a, b) for k in np_ext for a, b in zip(np_ext[k], again[k]))
+    if not same:
+        raise AssertionError("two compute_np_ext calls on the same input differ")
+    log(f"[phase 4] compute_np_ext at N={NUM_ENVS}: {ext_ms:.4f} ms per control step (CUDA "
+        f"events, {NP_EXT_CALLS} calls), {ops} device ops with {busy_ms:.4f} ms of device time "
+        f"(torch.profiler, one call); two calls bitwise equal")
+    return kernel_ms, plain_ms, bound_ms, bound_by, dict(ms=ext_ms, device_ops=ops,
+                                                          device_ms=busy_ms)
 
 
 def _check_info(info, where):
@@ -411,6 +517,8 @@ def phase_train(g1_path, clip_path):
     launches, dr_launches = cs.cuda_step.launches, cs.cuda_step.dr_launches
     iters = TRAIN_WARMUP + (1 + TRAIN_WINDOWS) * TRAIN_WINDOW
     peak = torch.cuda.max_memory_allocated()
+    if cs.cuda_step.np_launches:
+        raise AssertionError("config train launched the kernel with narrowphase rows")
     if launches != iters * a.steps_per_iter or dr_launches:
         raise AssertionError(f"{launches} main / {dr_launches} per-env launches over {iters} "
                              f"iterations, expected {iters * a.steps_per_iter} / 0")
@@ -479,6 +587,62 @@ def phase_train_dr(g1_path, clip_path):
     return dict(rate=rate, launches=dr_launches)
 
 
+def phase_train_np(g1_path, clip_path):
+    """Config train + engine.general_narrowphase at 4096 envs: the main
+    variant with the narrowphase rows."""
+    env, agent, state, g = _train_setup("train", g1_path, clip_path, seed=30,
+                                        general_narrowphase=True)
+    steps = agent.cfg.steps_per_iter
+    if not env.kernel or env.dr.enabled or not env.model.geoms.num_pairs:
+        raise AssertionError("train + general_narrowphase must run the kernel with its rows")
+    log(f"[phase 7] train + general_narrowphase: num_envs={NUM_ENVS} "
+        f"pairs={env.model.geoms.num_pairs} touched bodies={len(env._fc.np_bodies)}")
+    p0 = [p.detach().clone() for p in state[0].params.parameters()]
+    torch.cuda.synchronize()
+
+    reset_counts()
+    dt, _ = _train_iters(agent, state, g, 1, "np warm-up")
+    log(f"[phase 7] warm-up iteration: {dt:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(NP_TIMED):
+        before = cs.cuda_step.np_launches
+        dt, info = _train_iters(agent, state, g, 1, f"np iteration {i}")
+        if cs.cuda_step.np_launches - before != steps:
+            raise AssertionError(f"np iteration {i}: {cs.cuda_step.np_launches - before} "
+                                 f"launches with narrowphase rows, expected {steps}")
+        times.append(dt)
+        log(f"[phase 7] iteration {i}: {dt:.4f} s = {steps * NUM_ENVS / dt:.1f} env-steps/s; "
+            f"loss={info['loss'].item():.4f} mean_reward={info['mean_reward'].item():.4f} "
+            f"fail_frac={info['fail_frac'].item():.4f}")
+    launches, dr_launches = cs.cuda_step.launches, cs.cuda_step.dr_launches
+    np_launches = cs.cuda_step.np_launches
+    want = (1 + NP_TIMED) * steps
+    if (launches, dr_launches, np_launches) != (want, 0, want):
+        raise AssertionError(f"{launches} main / {dr_launches} per-env / {np_launches} with rows, "
+                             f"expected {want} / 0 / {want}")
+    if not any(not torch.equal(x, y) for x, y in zip(p0, state[0].params.parameters())):
+        raise AssertionError("train_iter left every parameter unchanged")
+    peak = torch.cuda.max_memory_allocated()
+    rate = steps * NUM_ENVS / float(np.median(times))
+    log(f"[phase 7] train + general_narrowphase env-steps/s (median of {NP_TIMED}): {rate:.1f}; "
+        f"{np_launches} launches with narrowphase rows ({np_launches // (1 + NP_TIMED)} per "
+        f"iteration); peak device memory {peak / 2**30:.3f} GiB")
+    return env, dict(rate=rate, launches=np_launches, peak_bytes=peak,
+                     iter_ms=1e3 * float(np.median(times)))
+
+
+def phase_parity(env):
+    """utils.debug.parity_check on the narrowphase env: the kernel against
+    the reference-layout engine."""
+    errs = parity_check(env, n=PARITY_ENVS)
+    if errs is None:
+        raise AssertionError("parity_check did not compare: the env runs the reference engine")
+    log(f"[phase 8] parity_check at {PARITY_ENVS} envs (kernel with narrowphase rows vs "
+        f"engine.step, 3 steps): max abs err "
+        + " ".join(f"{k}={v:.3e}" for k, v in errs.items()))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -504,23 +668,29 @@ def main() -> int:
 
     worst = phase_kernel_vs_plain(mini_path, g1_path)
     worst_dr = phase_dr_kernel_vs_plain(g1_path)
+    worst_np = phase_np_kernel_vs_plain(g1_path)
     phase_small_slice_check(g1_path, clip_path)
     env_steps_per_s = phase_slice(g1_path, clip_path)
-    times = {dr: phase_times(g1_path, dr) for dr in (False, True)}
+    times = {"main": phase_times(g1_path, False), "dr": phase_times(g1_path, True),
+             "np": phase_times(g1_path, False, geoms=True)}
+    np_ext = times["np"][4]
     train = phase_train(g1_path, clip_path)
     train_dr = phase_train_dr(g1_path, clip_path)
+    np_env, train_np = phase_train_np(g1_path, clip_path)
+    phase_parity(np_env)
 
     entries = []
-    for name, dr, launches, errs in (
-        ("control_step", False, train["launches"], worst),
-        ("control_step_dr", True, train_dr["launches"], worst_dr),
+    for name, key, launches, errs, replaces in (
+        ("control_step", "main", train["launches"], worst, 74),
+        ("control_step_dr", "dr", train_dr["launches"], worst_dr, 74),
+        ("control_step_np", "np", train_np["launches"], worst_np[False], 88),
     ):
-        kernel_ms, plain_ms, bound_ms, bound_by = times[dr]
+        kernel_ms, plain_ms, bound_ms, bound_by = times[key][:4]
         entries.append({
             "name": name,
             "route": "cuda",
             "source": "add_gym_torch/csrc/control_step.cu",
-            "replaces": "add_gym_tpu/physics/pallas_step.py:74",
+            "replaces": f"add_gym_tpu/physics/pallas_step.py:{replaces}",
             "launches": launches,
             "max_abs_err": max(errs.values()),
             "ms": kernel_ms,
@@ -536,6 +706,10 @@ def main() -> int:
         "train_split_ms": train["split"], "train_iter_ms": train["total_ms"],
         "train_peak_device_bytes": train["peak_bytes"],
         "dr_train_env_steps_per_s": train_dr["rate"],
+        "np_train_env_steps_per_s": train_np["rate"], "np_train_iter_ms": train_np["iter_ms"],
+        "np_train_peak_device_bytes": train_np["peak_bytes"],
+        "compute_np_ext_ms": np_ext["ms"], "compute_np_ext_device_ops": np_ext["device_ops"],
+        "np_per_env_max_abs_err": max(worst_np[True].values()),
         "num_envs": NUM_ENVS, "steps_per_iter": STEPS,
     }))
     smi = subprocess.run(

@@ -15,6 +15,12 @@
   the per-env device function (g++ build) against the plain step and
   against the Pallas kernel body; and, with shared values and ``ms = 1``,
   bit for bit against the main variant.
+* The held narrowphase rows (``np_bodies``): the plain step with the
+  G1-shaped fixture's geom tables against JAX ``fused_step`` with them;
+  the device function with random rows fed directly against the Pallas
+  kernel body with ``np_bodies`` (interpret mode, mini biped), with and
+  without the mass scale; and with the rows of ``compute_np_ext`` against
+  the plain step, main and per-env.
 * ``cuda_step`` on CPU tensors is the plain step; ``build_env`` refuses a
   CUDA device where there is none.
 
@@ -305,16 +311,16 @@ def test_build_env_refuses_missing_cuda(tmp_path):
 _SHIM = r"""
 #include "control_step.cuh"
 extern "C" void agt_control_step_host(const float* f, const int* ib, int nb, int nd, int ncp,
-                                      int nsph, int npair, int substeps, const float* in,
-                                      float* out, int n) {
-  AgtModel m{f, ib, nb, nd, ncp, nsph, npair, substeps};
+                                      int nsph, int npair, int substeps, int n_np,
+                                      const float* in, float* out, int n) {
+  AgtModel m{f, ib, nb, nd, ncp, nsph, npair, substeps, n_np};
   AgtEnvScratch s;
   for (int e = 0; e < n; ++e) agt_control_step_env(m, s, in, out, n, e);
 }
 extern "C" void agt_control_step_dr_host(const float* f, const int* ib, int nb, int nd, int ncp,
-                                         int nsph, int npair, int substeps, const float* in,
-                                         float* out, int n) {
-  AgtModel m{f, ib, nb, nd, ncp, nsph, npair, substeps};
+                                         int nsph, int npair, int substeps, int n_np,
+                                         const float* in, float* out, int n) {
+  AgtModel m{f, ib, nb, nd, ncp, nsph, npair, substeps, n_np};
   AgtEnvScratch s;
   for (int e = 0; e < n; ++e) agt_control_step_env<true>(m, s, in, out, n, e);
 }
@@ -339,7 +345,7 @@ def host_kernel(tmp_path_factory):
     for fn in (lib.agt_control_step_host, lib.agt_control_step_dr_host):
         fn.restype = None
         fn.argtypes = (
-            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2 + [ctypes.c_int]
         )
     return lib
 
@@ -459,8 +465,8 @@ def test_per_env_input_block_layout(g1):
 def test_pack_model_layout(g1):
     model, fc, tp = g1[:3]
     fbuf, ibuf, counts = cs.pack_model(fc, tp)
-    nb, nd, ncp, nsph, npair, substeps = counts
-    assert (nb, nd, ncp, substeps) == (model.nb, model.nd, model.ncp, 4)
+    nb, nd, ncp, nsph, npair, substeps, n_np = counts
+    assert (nb, nd, ncp, substeps, n_np) == (model.nb, model.nd, model.ncp, 4, 0)
     assert fbuf.size == cs.HDR + nb * cs.BODY + nd * cs.DOF + ncp * cs.PT + nsph * cs.SPH + npair * cs.PAIR
     assert ibuf.size == nb + (nb + 1) + nsph + 2 * npair
     cp_start = ibuf[nb: 2 * nb + 1]
@@ -470,3 +476,132 @@ def test_pack_model_layout(g1):
     np.testing.assert_array_equal(kp, tp.kp.numpy())
     no_sc = cs.pack_model(fc, dataclasses.replace(tp, self_collision=False))[2]
     assert no_sc[4] == 0
+
+
+# ------------------------------------------------- held narrowphase rows
+
+
+@pytest.fixture(scope="module")
+def g1_geoms(g1, tmp_path_factory):
+    """The G1-shaped fixture with its narrowphase tables attached, in both
+    packages: (model, port constants, port params, JAX params, JAX fused
+    step with geoms)."""
+    from add_gym_tpu.physics.model import attach_geoms as jax_attach_geoms
+    from add_gym_torch.physics.model import attach_geoms
+
+    path = fx.write_g1_fixture(str(tmp_path_factory.mktemp("g1_geoms")))
+    tmodel = attach_geoms(build_physics_model(path), path)
+    jfc = JaxFMC(jax_attach_geoms(jax_build_model(path), path))
+    jstep = jax.jit(lambda p, s, t: jax_fused_step(jfc, p, s, t))
+    return tmodel, FusedModelConstants(tmodel), g1[2], g1[3], jstep
+
+
+def _bent_scenario(model, n, seed):
+    """Ground contact with joints bent by 0.2 N(0, 1): narrowphase pairs
+    active (tests/test_narrowphase.py's perturbed standing state)."""
+    fields, cmd = fx.random_sim_state(model, n, seed=seed, height=fx.G1_PELVIS_HEIGHT)
+    rng = np.random.default_rng(seed)
+    fields["dof_pos"] = np.clip(fields["dof_pos"] + 0.2 * rng.normal(size=fields["dof_pos"].shape),
+                                model.dof_limit[:, 0], model.dof_limit[:, 1]).astype(np.float32)
+    return fields, cmd
+
+
+def test_g1_fixture_step_with_geoms_matches_jax_fused(g1_geoms):
+    from add_gym_torch.physics.fused_step import compute_np_ext
+
+    model, fc, tp, jp, jstep = g1_geoms
+    fields, cmd = _bent_scenario(model, 8, seed=21)
+    ts, js = _both_states(fields)
+    j_state, j_contact = jstep(jp, js, jnp.asarray(cmd))
+    t_state, t_contact = fused_step(fc, tp, ts, torch.as_tensor(cmd))
+    _assert_step_close(t_state, t_contact, j_state, j_contact)
+    np_ext = compute_np_ext(fc, tp, tp.ctrl_dt / tp.substeps, ts)
+    assert max(float(f.abs().max()) for _, f in np_ext.values()) > 10.0
+    # the held wrenches matter: without the tables the step differs
+    plain, _ = fused_step(FusedModelConstants(dataclasses.replace(model, geoms=None)), tp, ts,
+                          torch.as_tensor(cmd))
+    assert not torch.allclose(plain.dof_vel, t_state.dof_vel, rtol=1e-3, atol=1e-3)
+
+
+def _pallas_with_np_rows(jfc, jp, js, cmd, np_bodies, rows, use_ms):
+    """The JAX Pallas kernel body (interpret mode) with ``np_bodies`` and
+    their held-wrench ``rows`` [6 n, N] fed directly, as ``pallas_step``
+    assembles its inputs."""
+    from add_gym_tpu.physics.fused_step import _dof_tables, _prep_params
+    from add_gym_tpu.physics.pallas_step import _build_call
+
+    n, nd = cmd.shape
+    kp, kv, mu = _prep_params(jfc, jp)
+    mu = jnp.full((1, n), mu) if mu.ndim == 0 else mu.reshape(1, n)
+    args = [js.root_pos.T, js.root_quat.T, js.root_vel.T, js.root_ang_vel.T, js.dof_pos.T,
+            js.dof_vel.T, js.pd_target.T, jnp.asarray(cmd).T, jnp.broadcast_to(kp, (nd, n)),
+            jnp.broadcast_to(kv, (nd, n)), mu,
+            *(jnp.broadcast_to(t, (nd, n)) for t in _dof_tables(jfc))]
+    if use_ms:
+        args.append(jnp.asarray(jp.mass_scale).reshape(1, n))
+    args.append(jnp.asarray(rows))
+    call = _build_call(jfc, jp, n, n, interpret=True, use_ms=use_ms, np_bodies=tuple(np_bodies))
+    rp, rq, rv, ra, q, qd, tgt, contact = call(*args)
+    state = jeng.SimState(root_pos=rp.T, root_quat=rq.T, root_vel=rv.T, root_ang_vel=ra.T,
+                          dof_pos=q.T, dof_vel=qd.T, pd_target=tgt.T)
+    return state, contact.T
+
+
+@pytest.mark.parametrize("use_ms", [False, True], ids=["main", "per_env_ms"])
+def test_np_rows_device_function_matches_pallas_kernel_body(host_kernel, mini, use_ms):
+    """Random narrowphase rows fed straight into both kernels on the mini
+    biped (no geometry needed to test what a kernel does with the rows):
+    the g++-built device function against the Pallas kernel body with
+    ``np_bodies`` (interpret mode), with and without the mass scale."""
+    model, fc, tp, jp, _, jfc = mini
+    n = 16
+    fields, cmd = _scenario(model, n, "ground_contact", 0.6)
+    if use_ms:
+        tp, jp = _per_env_params(tp, jp, n, seed=22)
+    bodies = np.array([0, 2])
+    rows = (np.random.default_rng(23).normal(0.0, 20.0, (6 * len(bodies), n))).astype(np.float32)
+    ts, js = _both_states(fields)
+    j_state, j_contact = _pallas_with_np_rows(jfc, jp, js, cmd, bodies, rows, use_ms)
+
+    fc_np = FusedModelConstants(model)
+    fc_np.np_bodies = bodies
+    fbuf, ibuf, counts = cs.pack_model(fc_np, tp)
+    assert counts[-1] == 2 and list(ibuf[-2:]) == [0, 2]
+    inp = torch.cat([cs.pack_state(ts, torch.as_tensor(cmd), tp), torch.as_tensor(rows)])
+    out = torch.empty((13 + 3 * model.nd + model.nb, n))
+    fn = host_kernel.agt_control_step_dr_host if use_ms else host_kernel.agt_control_step_host
+    fn(fbuf.ctypes.data, ibuf.ctypes.data, *counts, inp.data_ptr(), out.data_ptr(), n)
+    k_state, k_contact = cs.unpack_state(out, model.nd)
+    _assert_step_close(k_state, k_contact, j_state, j_contact)
+    assert (np.asarray(j_contact) > 0).any()
+    # the rows act: without them the kernel body's step differs
+    zero_state, _ = _pallas_with_np_rows(jfc, jp, js, cmd, bodies, 0 * rows, use_ms)
+    assert not np.allclose(np.asarray(zero_state.dof_vel), k_state.dof_vel.numpy(), atol=1e-3)
+
+
+@pytest.mark.parametrize("per_env", [False, True], ids=["main", "per_env"])
+def test_np_rows_device_function_matches_plain_step(host_kernel, g1_geoms, per_env):
+    """The g++-built device function with the rows of ``compute_np_ext``
+    against the port's plain step, 4 chained steps on the G1-shaped
+    fixture with its tables attached (30 touched bodies, 180 rows)."""
+    from add_gym_torch.physics.fused_step import compute_np_ext
+
+    model, fc, tp, jp, _ = g1_geoms
+    n = 37
+    fields, cmd = _bent_scenario(model, n, seed=24)
+    if per_env:
+        tp = _per_env_params(tp, jp, n, seed=25)[0]
+    state = SimState(**{k: torch.as_tensor(v) for k, v in fields.items()})
+    cmd = torch.as_tensor(cmd)
+    for _ in range(4):
+        np_ext = compute_np_ext(fc, tp, tp.ctrl_dt / tp.substeps, state)
+        fbuf, ibuf, counts = cs.pack_model(fc, tp)
+        inp = cs.pack_state(state, cmd, tp, None, np_ext)
+        assert inp.shape[0] == (15 + 6 * model.nd if per_env else 13 + 4 * model.nd) + 180
+        out = torch.empty((13 + 3 * model.nd + model.nb, n))
+        fn = host_kernel.agt_control_step_dr_host if per_env else host_kernel.agt_control_step_host
+        fn(fbuf.ctypes.data, ibuf.ctypes.data, *counts, inp.data_ptr(), out.data_ptr(), n)
+        k_state, k_contact = cs.unpack_state(out, model.nd)
+        p_state, p_contact = fused_step(fc, tp, state, cmd)
+        _assert_step_close(k_state, k_contact, p_state, p_contact)
+        state = p_state

@@ -8,7 +8,10 @@ Run on a machine with an NVIDIA GPU and no JAX from the repository root:
 nothing of JAX.  Tolerances are ``physics.testing.step_tolerances()`` for
 one step, and rtol = atol = 1e-3 for a 4-step rollout.  The per-env
 (domain-randomization) variant is held to the plain step the same way, and
-a small ``train_iter`` on the ``dr_pod`` config runs through it.
+a small ``train_iter`` on the ``dr_pod`` config runs through it.  Both
+variants with the held narrowphase rows (the G1-shaped fixture with its
+geom tables) are held to the plain step too, and two ``compute_np_ext``
+calls on the same input must give the same bits.
 """
 
 import dataclasses
@@ -21,8 +24,10 @@ from add_gym_torch.builder import build_agent, build_env
 from add_gym_torch.physics import cuda_step as cs
 from add_gym_torch.physics import testing as fx
 from add_gym_torch.physics.engine import EngineParams, SimState
-from add_gym_torch.physics.fused_step import FusedModelConstants, fused_step
-from add_gym_torch.physics.model import build_physics_model
+from add_gym_torch.physics.fused_step import (
+    FusedModelConstants, compute_np_ext, fused_step, np_rows,
+)
+from add_gym_torch.physics.model import attach_geoms, build_physics_model
 from add_gym_torch.robot import build_pd_gains
 from add_gym_torch.utils.config import load_config
 
@@ -94,6 +99,58 @@ def test_per_env_kernel_matches_plain_step(paths, which):
         got = k_contact if f == "contact" else getattr(k_state, f)
         want = p_contact if f == "contact" else getattr(p_state, f)
         torch.testing.assert_close(got, want, **tol, msg=lambda m: f"{f}: {m}")
+
+
+def _bent(model, n, seed):
+    """Ground contact with the joints bent by 0.2 N(0, 1): the narrowphase
+    pairs of the G1-shaped fixture push."""
+    fields, cmd = fx.random_sim_state(model, n, seed=seed, height=fx.G1_PELVIS_HEIGHT)
+    rng = np.random.default_rng(seed)
+    fields["dof_pos"] = np.clip(fields["dof_pos"] + 0.2 * rng.normal(size=fields["dof_pos"].shape),
+                                model.dof_limit[:, 0], model.dof_limit[:, 1]).astype(np.float32)
+    state = SimState(**{k: torch.as_tensor(v, device="cuda") for k, v in fields.items()})
+    return state, torch.as_tensor(cmd, device="cuda")
+
+
+@pytest.mark.parametrize("per_env", [False, True], ids=["main", "per_env"])
+def test_np_kernel_matches_plain_step(paths, per_env):
+    """The kernel with its held narrowphase rows at 256 envs, main and
+    per-env variant, against ``fused_step`` with the geom tables."""
+    model, fc, params = _model(paths["g1"], True)
+    model = attach_geoms(model, paths["g1"])
+    fc = FusedModelConstants(model)
+    n = 256
+    if per_env:
+        pe = fx.per_env_params(params.kp.cpu().numpy(), params.kv.cpu().numpy(), n, seed=14)
+        params = dataclasses.replace(
+            params, **{k: torch.as_tensor(v, device="cuda") for k, v in pe.items()})
+    state, cmd = _bent(model, n, seed=15)
+    np_ext = compute_np_ext(fc, params, params.ctrl_dt / params.substeps, state)
+    assert float(np_rows(np_ext).abs().max()) > 10.0
+    before = (cs.cuda_step.launches, cs.cuda_step.dr_launches, cs.cuda_step.np_launches)
+    k_state, k_contact = cs.cuda_step(fc, params, state, cmd)
+    p_state, p_contact = fused_step(fc, params, state, cmd)
+    torch.cuda.synchronize()
+    want = (before[0] + (not per_env), before[1] + per_env, before[2] + 1)
+    assert (cs.cuda_step.launches, cs.cuda_step.dr_launches, cs.cuda_step.np_launches) == want
+    for f, tol in fx.step_tolerances().items():
+        got = k_contact if f == "contact" else getattr(k_state, f)
+        ref = p_contact if f == "contact" else getattr(p_state, f)
+        torch.testing.assert_close(got, ref, **tol, msg=lambda m: f"{f}: {m}")
+
+
+def test_compute_np_ext_is_deterministic(paths):
+    """Two ``compute_np_ext`` calls on the same input give the same bits:
+    the per-body sums run in a fixed order, not through atomics."""
+    model, _, params = _model(paths["g1"], True)
+    model = attach_geoms(model, paths["g1"])
+    fc = FusedModelConstants(model)
+    state, _ = _bent(model, 1024, seed=16)
+    dt = params.ctrl_dt / params.substeps
+    a = np_rows(compute_np_ext(fc, params, dt, state))
+    b = np_rows(compute_np_ext(fc, params, dt, state))
+    assert float(a.abs().max()) > 10.0
+    assert torch.equal(a, b)
 
 
 def test_dr_train_iter_through_kernel(paths):

@@ -217,9 +217,95 @@ def test_rollout_step_cached_matches(envs):
     np.testing.assert_allclose(tobs_after.numpy(), np.asarray(jobs_after), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(taux3.numpy(), np.asarray(jaux3), rtol=1e-4, atol=1e-4)
     assert set(tout) == set(jout)
+    _cmp_out(tout, jout)
+
+
+def _cmp_out(tout, jout, tol=1e-4):
     for k in jout:
         a, b = np.asarray(jout[k]), tout[k].numpy()
         if k in ("done", "motion_ids"):
             np.testing.assert_array_equal(b, a, err_msg=k)
         else:
-            np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-4, err_msg=k)
+            np.testing.assert_allclose(b, a, rtol=tol, atol=tol, err_msg=k)
+
+
+def test_rollout_with_sparse_tar_obs_steps_matches(tmp_path):
+    """``tar_obs_steps = (1, 3, 5)`` has no incremental row window: the
+    port's ``rollout_step_cached`` composes ``step``, ``reset_where`` and
+    ``compute_obs`` on its presampled draws.  Three chained steps against
+    JAX ``rollout_step`` (its plain branch), fed the draws JAX's
+    ``reset_where`` takes from each step's key; two episodes reset on the
+    first step."""
+    mjcf = fx.write_mini_mjcf(str(tmp_path))
+    clip = fx.write_motion_csv(str(tmp_path / "mini.motion"), seed=3, num_frames=90,
+                               joint_order=MINI_JOINTS, height=0.65)
+    envs_ = []
+    for load in (jax_load_config, load_config):
+        cfg = _cfg(load, mjcf, clip)
+        cfg["task"]["tar_obs_steps"] = [1, 3, 5]
+        envs_.append(cfg)
+    jenv = jax_build_env(envs_[0])
+    tenv = build_env(envs_[1], device="cpu")
+    assert not jenv._aux_shiftable and not tenv._aux_shiftable
+    assert tenv.obs_dim() == jenv.obs_dim()
+    jes, tes = _reset_pair(jenv, tenv)
+    ep_time = np.zeros(N, np.float32)
+    ep_time[[0, 5]] = jenv.task.max_episode_length - 0.005
+    jes = dataclasses.replace(jes, time=jnp.asarray(ep_time))
+    tes = dataclasses.replace(tes, time=torch.as_tensor(ep_time))
+    sampler = jax_init_sampler(1, jenv.task.sampler_num_segments)
+    rng = np.random.default_rng(5)
+    jstep = jax.jit(jenv.rollout_step)
+    aux = tenv.motion_aux(tes)
+    for t in range(3):
+        key = jax.random.PRNGKey(10 + t)
+        action = rng.normal(0.0, 0.3, (N, 2)).astype(np.float32)
+        jes, jobs_after, jout = jstep(key, jes, jnp.asarray(action), sampler)
+        k1, k2, _ = jax.random.split(key, 3)
+        ids = jenv.motion.sample_motions(k1, N)
+        times = jenv._sample_times(k2, ids, sampler)
+        tes, tobs_after, aux, tout = tenv.rollout_step_cached(
+            tes, torch.as_tensor(action), aux, torch.as_tensor(np.array(ids), dtype=torch.int64),
+            torch.as_tensor(np.array(times)), init_dr_state(N))
+        assert aux is None
+        if t == 0:
+            assert (np.asarray(jout["done"])[[0, 5]] != 0).all()
+        _cmp_env_state(tes, jes)
+        np.testing.assert_allclose(tobs_after.numpy(), np.asarray(jobs_after), rtol=1e-4,
+                                   atol=1e-4)
+        assert set(tout) == set(jout)
+        _cmp_out(tout, jout)
+
+
+def test_env_device_and_backend_selection(envs, tmp_path):
+    """``ImitationEnv`` defaults to the card and raises where there is none;
+    ``engine.fused: false`` steps through the reference-layout engine, and
+    the kernel cannot be that backend."""
+    from add_gym_torch.envs.imitation import ImitationEnv
+
+    _, tenv = envs
+    args = (tenv.model, tenv.motion, tenv.params, tenv.task)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ImitationEnv(*args)
+    with pytest.raises(ValueError, match="kernel needs fused=True"):
+        ImitationEnv(*args, kernel=True, fused=False, device="cpu")
+
+    mjcf = fx.write_mini_mjcf(str(tmp_path))
+    clip = fx.write_motion_csv(str(tmp_path / "mini.motion"), seed=3, num_frames=90,
+                               joint_order=MINI_JOINTS, height=0.65)
+    cfg = _cfg(load_config, mjcf, clip)
+    cfg["engine"]["fused"] = False
+    ref_env = build_env(cfg, device="cpu")
+    assert not ref_env.fused and not ref_env.kernel
+    cfg["engine"]["kernel"] = "on"
+    with pytest.raises(ValueError, match="kernel needs fused=True"):
+        build_env(cfg, device="cpu")
+    # the reference-layout env and the plain-step env take the same step
+    _, tes = _reset_pair(envs[0], tenv)
+    tgt = torch.as_tensor(np.random.default_rng(6).normal(0.0, 0.3, (N, 2)), dtype=torch.float32)
+    a, b = ref_env.step(tes, tgt), tenv.step(tes, tgt)
+    for f in fx.STATE_FIELDS:
+        np.testing.assert_allclose(getattr(a[0].sim, f).numpy(), getattr(b[0].sim, f).numpy(),
+                                   rtol=1e-4, atol=1e-4, err_msg=f)
+    np.testing.assert_array_equal(a[-1].numpy(), b[-1].numpy())
