@@ -9,6 +9,9 @@ Public entry points::
 
     from add_gym_torch import load_config, build_env, build_agent
 
+and the training CLI, ``python -m add_gym_torch.cli.train`` (data-parallel
+under ``python -m torch.distributed.run``, ``parallel/mesh.py``).
+
 Submodules are imported lazily so that light uses (the config system, the
 model parser) do not pay for the whole package.
 """

@@ -8,6 +8,8 @@ the control-step kernel on a CUDA device with domain randomization on too
 ``engine.general_narrowphase`` (the held narrowphase wrenches go in as
 extra input rows).  ``engine.fused: false`` selects the reference-layout
 engine instead, which the kernel cannot be (``kernel: on`` then raises).
+Under data parallelism (a ``parallel.mesh.Dist`` of several ranks) the
+env holds the rank's share of the global ``engine.num_envs``.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from add_gym_torch.envs.imitation import ImitationEnv, TaskConfig
 from add_gym_torch.kinematics.char_model import load_char_model
 from add_gym_torch.learning.add_agent import ADDAgent, AgentConfig
 from add_gym_torch.motion.motion_lib import load_motion_lib
+from add_gym_torch.parallel.mesh import Dist
 from add_gym_torch.physics.engine import EngineParams
 from add_gym_torch.physics.model import attach_geoms, build_physics_model
 from add_gym_torch.physics.testing import MOTION_JOINT_ORDER
@@ -61,8 +64,17 @@ def _use_kernel(setting, device: torch.device, fused: bool = True) -> bool:
     return bool(setting)
 
 
-def build_env(cfg: Dict, device="cuda") -> ImitationEnv:
+def build_env(cfg: Dict, device="cuda", dist: Dist | None = None) -> ImitationEnv:
+    """The env on ``device``.  Under a ``dist`` of more than one rank it
+    holds the rank's share of the global ``engine.num_envs`` (which the
+    world size must divide) and steps it through the sharded wrappers of
+    the kernel or the plain step; ``device`` must then be the rank's."""
     device = resolve_device(device)
+    shard = None
+    if dist is not None and dist.world_size > 1:
+        if device != dist.device:
+            raise ValueError(f"rank {dist.rank} runs on {dist.device}, not {device}")
+        shard = dist.shard(int(cfg.get("engine", {}).get("num_envs", 256)))
     robot_cfg = cfg.get("robot", {})
     engine_cfg = cfg.get("engine", {})
     task_cfg = cfg.get("task", {})
@@ -138,12 +150,15 @@ def build_env(cfg: Dict, device="cuda") -> ImitationEnv:
         fused=fused,
         device=device,
         dr=dr,
+        shard=shard,
     )
 
 
-def build_agent(cfg: Dict, env: ImitationEnv, generator: torch.Generator | None = None) -> ADDAgent:
+def build_agent(cfg: Dict, env: ImitationEnv, generator: torch.Generator | None = None,
+                dist: Dist | None = None) -> ADDAgent:
     """The agent on ``env``'s device; without ``generator`` it draws from a
-    generator on that device seeded with ``cfg["seed"]``."""
+    generator on that device seeded with ``cfg["seed"]``.  ``dist`` (the
+    env's) makes its batch statistics and gradients global over the ranks."""
     a = cfg.get("agent", {})
     agent_cfg = AgentConfig(
         discount=float(a.get("discount", 0.99)),
@@ -186,4 +201,4 @@ def build_agent(cfg: Dict, env: ImitationEnv, generator: torch.Generator | None 
     if generator is None:
         generator = torch.Generator(device=env.device)
         generator.manual_seed(int(cfg.get("seed", 0)))
-    return ADDAgent(env, agent_cfg, generator)
+    return ADDAgent(env, agent_cfg, generator, dist)

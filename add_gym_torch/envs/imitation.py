@@ -5,10 +5,11 @@ Counterpart of ``add_gym_tpu/envs/imitation.py``: one ``EnvState`` of
 ``reset_where`` (masked reset to sampled reference poses, with fresh
 domain-randomization draws when it is on), ``compute_obs``, ``step``
 (physics step with the per-env parameters and the latency blend of domain
-randomization, reward and done) and ``rollout_step_cached`` (the same step,
+randomization, reward and done), ``rollout_step_cached`` (the same step,
 masked reset and both observation passes, with the incremental motion-row
 window; for non-consecutive ``tar_obs_steps`` it composes ``step``,
-``reset_where`` and ``compute_obs`` on the same presampled draws).
+``reset_where`` and ``compute_obs`` on the same presampled draws) and
+``rollout_step`` (the same, drawing its own resets; evaluation's step).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from add_gym_torch.envs.done import DoneFlags, compute_done
 from add_gym_torch.envs.reward import compute_reward
 from add_gym_torch.learning import sampler as sampler_mod
 from add_gym_torch.motion.motion_lib import MotionLib
+from add_gym_torch.parallel.mesh import EnvShard
 from add_gym_torch.physics.engine import EngineParams, SimState, default_state
 from add_gym_torch.physics.fused_step import FusedModelConstants
 from add_gym_torch.physics.model import PhysicsModel
@@ -116,6 +118,13 @@ class ImitationEnv:
     ``fused=False`` through the reference-layout engine
     (``physics/engine.py``), which the kernel cannot be.  ``device``
     defaults to the card and raises where there is none.
+
+    Under data parallelism ``shard`` (``parallel.mesh.EnvShard``) names
+    this rank's envs: every state holds only those, and the kernel runs
+    through its sharded wrapper (``cuda_step.sharded_cuda_step``).  The
+    per-env parameters are drawn for the local envs, so the plain steps
+    need no slicing.  Reset and domain-randomization draws come from the
+    caller's (per-rank) generator.
     """
 
     def __init__(
@@ -128,10 +137,12 @@ class ImitationEnv:
         fused: bool = True,
         device="cuda",
         dr: DRConfig = DRConfig(),
+        shard: EnvShard | None = None,
     ):
         if kernel and not fused:
             raise ValueError("the control-step kernel is a fused backend: kernel needs fused=True")
         self.device = resolve_device(device)
+        self.shard = shard
         self.model = model
         self.motion = motion
         self.params = engine_params
@@ -141,7 +152,10 @@ class ImitationEnv:
         self.kernel = kernel
         self.fused = fused
         self._fc = FusedModelConstants(model)
-        if kernel:
+        if kernel and shard is not None:
+            from add_gym_torch.physics.cuda_step import sharded_cuda_step
+            self._step_fn = lambda p, s, t: sharded_cuda_step(self._fc, p, s, t, shard)
+        elif kernel:
             from add_gym_torch.physics.cuda_step import cuda_step
             self._step_fn = lambda p, s, t: cuda_step(self._fc, p, s, t)
         elif fused:
@@ -322,6 +336,30 @@ class ImitationEnv:
             root_pose_scale=t.reward_root_pose_scale,
             root_vel_scale=t.reward_root_vel_scale,
         )
+
+    def rollout_step(self, state: EnvState, pd_target, sampler_state, generator=None,
+                     draws=None):
+        """Step, masked reset and both obs passes, drawing the resets itself:
+        the step the evaluation rollout takes (``ADDAgent.rollout``).
+
+        ``draws = (ids, times)`` or ``(ids, times, dr)`` replaces the reset
+        draws of this step (the JAX package takes them from the step's key:
+        motion ids, start times and domain randomization, in that order);
+        without ``dr`` it is drawn from ``generator``.  Returns
+        ``(state3, obs_after, out)`` as :meth:`rollout_step_cached`.
+        """
+        N = state.time.shape[0]
+        if draws is None:
+            draws = self.sample_resets(N, sampler_state, generator)
+        ids_f, times_f = draws[:2]
+        dr = draws[2] if len(draws) > 2 else self.sample_dr(N, generator)
+        ids_f = to_device(ids_f, self.device, torch.int64)
+        times_f = to_device(times_f, self.device, torch.float32)
+        dr = {k: to_device(v, self.device, torch.float32) for k, v in dr.items()}
+        aux = self.motion_aux(state) if self._aux_shiftable else None
+        state3, obs_after, _, out = self.rollout_step_cached(
+            state, pd_target, aux, ids_f, times_f, dr)
+        return state3, obs_after, out
 
     def rollout_step_cached(self, state: EnvState, pd_target, aux, ids_f, times_f, dr):
         """Presampled, aux-carried rollout step.

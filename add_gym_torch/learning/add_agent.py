@@ -1,8 +1,9 @@
-"""ADD agent: PPO + adversarial differential discriminator on one device.
+"""ADD agent: PPO + adversarial differential discriminator.
 
 Counterpart of ``add_gym_tpu/learning/add_agent.py`` for ``disc_mode:
 add``: ``AgentConfig``, ``TrainState`` (with the optimizer's moments),
-network and normalizer init, and one training iteration, ``train_iter``:
+network and normalizer init, the evaluation rollout (``rollout``,
+``eval_rollout``) and one training iteration, ``train_iter``:
 
 1. ``rollout_lean``: the train rollout (bf16 actor under mixed precision,
    presampled action noise, reset and domain-randomization draws);
@@ -17,10 +18,22 @@ network and normalizer init, and one training iteration, ``train_iter``:
 Every random draw can be injected (rollout draws, minibatch permutations),
 so the parity tests feed the port the JAX package's draws.  The network
 parameters are updated in place (the JAX package donates its buffers).
+
+Data parallelism (``dist``, a ``parallel.mesh.Dist`` of several ranks,
+each holding its shard of the envs) makes global what GSPMD makes global
+in the JAX package: each rank reduces sums and counts over the ranks, never
+local means (the rollout's obs-normalizer statistics, the disc diff
+normalizer's sum of |x|, the advantage moments in two passes, the
+sampler's per-segment sums, the infos), draws its own minibatch
+permutations, and averages the gradients over the ranks once per
+minibatch, before the clip and the Adam step.  Every rank then holds the
+same parameters bit for bit.  With one rank every reduction is the
+identity.
 """
 
 from __future__ import annotations
 
+import hashlib
 import math
 from dataclasses import dataclass, replace
 
@@ -36,6 +49,7 @@ from add_gym_torch.learning import normalizer as norm
 from add_gym_torch.learning import optim
 from add_gym_torch.learning import sampler as sampler_mod
 from add_gym_torch.learning.networks import ADDNet
+from add_gym_torch.parallel.mesh import Dist
 
 # the minibatch fields the losses read (update_model gathers only these)
 UPDATE_FIELDS = ("norm_obs", "norm_a", "a_logp", "tar_val", "adv", "rand_mask", "disc_in")
@@ -94,11 +108,68 @@ class TrainState:
     sample_count: torch.Tensor  # [] int
 
 
+def train_state_dict(ts: TrainState) -> dict:
+    """The train state as a dict of tensors (what a checkpoint holds)."""
+    return dict(
+        params=ts.params.state_dict(),
+        opt_count=ts.opt_state.count, opt_mu=list(ts.opt_state.mu), opt_nu=list(ts.opt_state.nu),
+        obs_norm=dict(count=ts.obs_norm.count, mean=ts.obs_norm.mean, mean_sq=ts.obs_norm.mean_sq),
+        disc_norm=dict(count=ts.disc_norm.count, mean_abs=ts.disc_norm.mean_abs),
+        sampler_errors=ts.sampler.errors,
+        sample_count=ts.sample_count,
+    )
+
+
+def state_tensors(d) -> list:
+    """Every tensor of a nested dict / list such as a
+    :func:`train_state_dict`, in a fixed order."""
+    if isinstance(d, dict):
+        return [t for k in sorted(d) for t in state_tensors(d[k])]
+    if isinstance(d, (list, tuple)):
+        return [t for x in d for t in state_tensors(x)]
+    return [torch.as_tensor(d)]
+
+
+def state_digest(ts: TrainState) -> str:
+    """SHA-256 of every tensor of the train state (network, Adam moments,
+    normalizers, sampler, sample count): equal digests mean equal bits."""
+    h = hashlib.sha256()
+    for t in state_tensors(train_state_dict(ts)):
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def load_train_state_dict(ts: TrainState, d: dict) -> TrainState:
+    """``ts`` holding the values of ``d`` (a :func:`train_state_dict`) on
+    ``ts``'s device; the network is loaded in place.  Raises on a shape
+    that does not fit."""
+    dev = ts.sample_count.device
+    t = lambda x, like: torch.as_tensor(x).to(device=dev, dtype=like.dtype)
+    ts.params.load_state_dict(d["params"])
+    params = list(ts.params.parameters())
+    if len(d["opt_mu"]) != len(params):
+        raise ValueError(f"checkpoint has {len(d['opt_mu'])} moments, the network "
+                         f"{len(params)} parameters")
+    return replace(
+        ts,
+        opt_state=optim.AdamState(
+            count=t(d["opt_count"], ts.opt_state.count),
+            mu=[t(m, p).reshape(p.shape) for m, p in zip(d["opt_mu"], params)],
+            nu=[t(v, p).reshape(p.shape) for v, p in zip(d["opt_nu"], params)],
+        ),
+        obs_norm=replace(ts.obs_norm, **{k: t(v, ts.obs_norm.mean) for k, v in d["obs_norm"].items()}),
+        disc_norm=replace(ts.disc_norm, **{k: t(v, ts.disc_norm.mean_abs)
+                                           for k, v in d["disc_norm"].items()}),
+        sampler=sampler_mod.SamplerState(errors=t(d["sampler_errors"], ts.sampler.errors)),
+        sample_count=t(d["sample_count"], ts.sample_count),
+    )
+
+
 class ADDAgent:
     """Binds env + networks + config into the acting functions."""
 
     def __init__(self, env: ImitationEnv, cfg: AgentConfig,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, dist: Dist | None = None):
         if cfg.disc_mode != "add":
             raise NotImplementedError(f"disc_mode {cfg.disc_mode!r} is not ported yet")
         if cfg.actor_std_type != "fixed":
@@ -108,6 +179,7 @@ class ADDAgent:
         self.env = env
         self.cfg = cfg
         self.device = env.device
+        self.dist = dist if dist is not None else Dist(device=env.device)
         self.logstd = float(np.log(cfg.action_std))
         self.generator = generator
         # action normalizer from the action space
@@ -163,6 +235,45 @@ class ADDAgent:
             return cfg.exp_prob
         l = min(max(float(sample_count) / cfg.exp_anneal_samples, 0.0), 1.0)
         return (1.0 - l) * cfg.exp_prob + l * cfg.exp_prob_end
+
+    def _global_sum(self, *xs):
+        """Each tensor of ``xs`` summed over the ranks, in one collective
+        over an f32 buffer (the same values with one rank)."""
+        flat = torch.cat([torch.as_tensor(x, dtype=torch.float32, device=self.device).reshape(-1)
+                          for x in xs])
+        flat = self.dist.all_reduce_sum(flat)
+        out, i = [], 0
+        for x in xs:
+            n = torch.as_tensor(x).numel()
+            out.append(flat[i:i + n].reshape(torch.as_tensor(x).shape))
+            i += n
+        return tuple(out) if len(out) > 1 else out[0]
+
+    def _decide_action(self, net: ADDNet, obs_norm, obs, train: bool, exp_prob=None,
+                       noise=None, bern=None, generator: torch.Generator | None = None):
+        """Action from the actor: with ``train`` the rand-action-mask
+        exploration (Gaussian noise on the envs a Bernoulli(``exp_prob``)
+        picks), else the mean.  ``noise`` [N, nd] and ``bern`` [N, 1]
+        replace the draws.  Returns (action, norm_a, a_logp, rand_mask)."""
+        g = generator if generator is not None else self.generator
+        norm_obs = norm.normalize(obs_norm, obs)
+        mean = self._actor_mean(net, norm_obs)
+        logstd = torch.full_like(mean, self.logstd)
+        if train:
+            if noise is None:
+                noise = torch.randn(mean.shape, generator=g, device=self.device)
+            if bern is None:
+                p = self.cfg.exp_prob if exp_prob is None else exp_prob
+                bern = torch.bernoulli(torch.full((mean.shape[0], 1), p, device=self.device),
+                                       generator=g)
+            norm_a = torch.where(bern == 1.0, mean + torch.exp(logstd) * noise, mean)
+            rand_mask = bern[:, 0]
+        else:
+            norm_a = mean
+            rand_mask = torch.zeros(mean.shape[0], device=self.device)
+        a_logp = dist.log_prob(mean, logstd, norm_a)
+        action = norm_a * self.a_std + self.a_mean
+        return action, norm_a, a_logp, rand_mask
 
     def sample_rollout_draws(self, ts: TrainState, num_envs: int, num_steps: int,
                              generator: torch.Generator | None = None):
@@ -246,6 +357,48 @@ class ADDAgent:
         traj = {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
         return env_state, obs, traj, (count, s1, s2)
 
+    @torch.no_grad()
+    def rollout(self, ts: TrainState, env_state: EnvState, obs, num_steps: int,
+                train: bool = True, generator: torch.Generator | None = None, draws=None):
+        """The rich rollout: ``num_steps`` of action, ``env.rollout_step``
+        (step, masked reset, obs), recording raw obs, actions and the
+        step's outputs.  ``train=False`` acts with the actor's mean (the
+        evaluation policy).  ``draws = (noise, bern, ids, times[, dr])``,
+        each [T, ...] (``dr`` a dict of [T, N]; ``noise`` and ``bern``
+        unread without ``train``), replaces the random draws.  Returns
+        ``(env_state, obs, traj)`` with traj tensors [T, N, ...].
+        """
+        env = self.env
+        exp_prob = self._exp_prob(ts.sample_count) if train else None
+        steps = []
+        for t in range(num_steps):
+            noise = bern = step_draws = None
+            if draws is not None:
+                noise, bern, ids, times = draws[:4]
+                if train:
+                    noise = to_device(noise[t], self.device, torch.float32)
+                    bern = to_device(bern[t], self.device, torch.float32)
+                step_draws = (ids[t], times[t])
+                if len(draws) > 4:
+                    step_draws += ({k: v[t] for k, v in draws[4].items()},)
+            action, _, a_logp, rand_mask = self._decide_action(
+                ts.params, ts.obs_norm, obs, train, exp_prob, noise, bern, generator)
+            env_state, obs_after, out = env.rollout_step(
+                env_state, action, ts.sampler, generator, draws=step_draws)
+            steps.append(dict(obs=obs, action=action, a_logp=a_logp, rand_mask=rand_mask, **out))
+            obs = obs_after
+        traj = {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
+        return env_state, obs, traj
+
+    def eval_rollout(self, ts: TrainState, env_state: EnvState, obs, num_steps: int,
+                     generator: torch.Generator | None = None, draws=None):
+        """Deterministic (mean action) rollout for evaluation: returns
+        ``(env_state, obs, reward [T, N], done [T, N])``; episode
+        statistics are taken on the host (``learning.runner.episode_stats``)."""
+        env_state, obs, traj = self.rollout(ts, env_state, obs, num_steps, train=False,
+                                            generator=generator, draws=draws)
+        return env_state, obs, traj["reward"], traj["done"]
+
     # ---------------------------------------------------------- train data
 
     def _disc_reward_from_input(self, net: ADDNet, disc_in):
@@ -271,13 +424,15 @@ class ADDAgent:
         disc_r = self._disc_reward_from_input(net, disc_in)
         r = cfg.task_reward_weight * task_r + cfg.disc_reward_weight * disc_r
 
-        # the adaptive sampler's error: tracking error against the aligned demo
+        # the adaptive sampler's error: tracking error against the aligned
+        # demo, per-segment sums over all ranks' envs
         diff_sq = torch.sum(aligned_diff * aligned_diff, dim=-1)
-        new_sampler = sampler_mod.update_errors(
+        total, count = self._global_sum(*sampler_mod.segment_stats(
             ts.sampler, self.env.seg_sizes,
             traj["motion_ids"].reshape(-1), traj["motion_times"].reshape(-1),
             diff_sq.reshape(-1),
-        )
+        ))
+        new_sampler = sampler_mod.update_errors_from_stats(ts.sampler, total, count)
 
         vals = self._critic(net, traj["norm_obs"])
         next_vals = self._critic(net, traj["norm_next"])
@@ -288,19 +443,26 @@ class ADDAgent:
         ret = td_lambda_return(r, next_vals, done, cfg.discount, cfg.td_lambda)
         adv = ret - vals
 
+        # masked advantage moments over all ranks' samples, in two passes
+        # (a global mean, then the global sum of squared deviations)
         mask = traj["rand_mask"] == 1.0
-        cnt = torch.clamp_min(mask.sum().float(), 1.0)
-        adv_mean = torch.sum(adv * mask) / cnt
-        adv_var = torch.sum((adv - adv_mean) ** 2 * mask) / torch.clamp_min(cnt - 1, 1.0)
-        adv_std = torch.sqrt(adv_var)
+        n = float(adv.numel() * self.dist.world_size)
+        adv_sum, cnt, disc_r_sum, task_r_sum = self._global_sum(
+            torch.sum(adv * mask), mask.sum().float(), disc_r.sum(), task_r.sum())
+        cnt = torch.clamp_min(cnt, 1.0)
+        adv_mean = adv_sum / cnt
+        disc_r_mean = disc_r_sum / n
+        adv_sq, disc_r_sq = self._global_sum(
+            torch.sum((adv - adv_mean) ** 2 * mask), torch.sum((disc_r - disc_r_mean) ** 2))
+        adv_std = torch.sqrt(adv_sq / torch.clamp_min(cnt - 1, 1.0))
         norm_adv = (adv - adv_mean) / torch.clamp_min(adv_std, 1e-5)
         norm_adv = torch.clamp(norm_adv, -cfg.norm_adv_clip, cfg.norm_adv_clip)
 
         data = dict(traj, reward=r, tar_val=ret, adv=norm_adv, disc_in=disc_in)
         info = dict(
             adv_mean=adv_mean, adv_std=adv_std,
-            disc_reward_mean=disc_r.mean(), disc_reward_std=disc_r.std(unbiased=False),
-            task_reward_mean=task_r.mean(),
+            disc_reward_mean=disc_r_mean, disc_reward_std=torch.sqrt(disc_r_sq / n),
+            task_reward_mean=task_r_sum / n,
         )
         return replace(ts, sampler=new_sampler), data, info
 
@@ -392,6 +554,15 @@ class ADDAgent:
         return optim.clip_adam_step(
             list(net.parameters()), grads, opt_state, cfg.learning_rate, cfg.grad_clip)
 
+    def _mean_grads(self, grads):
+        """The gradients averaged over the ranks (the DDP contract): one
+        collective over a flat buffer, divided by the world size on every
+        rank alike, before the clip sees them."""
+        if self.dist.world_size == 1:
+            return grads
+        flat = self.dist.all_reduce_mean(torch.cat([g.reshape(-1) for g in grads]))
+        return [x.view_as(g) for x, g in zip(torch.split(flat, [g.numel() for g in grads]), grads)]
+
     def _epoch_scan(self, net: ADDNet, opt_state, flat, num_batches: int, env_count: int,
                     perms=None, generator: torch.Generator | None = None):
         """Epochs of minibatch steps over a flat, time-major [M, ...] buffer
@@ -399,8 +570,10 @@ class ADDAgent:
         (:func:`pick_shuffle_block`) and cuts the permutation into
         ``num_batches`` minibatches; ``perms`` [epochs][M // B] replaces
         the permutations (the JAX package draws them with
-        ``jax.random.permutation``).  Returns ``(opt_state, infos)`` with
-        each info stacked over the epochs x minibatches."""
+        ``jax.random.permutation``); under data parallelism each rank
+        permutes its own rows from its own stream and the gradients are
+        averaged over the ranks per minibatch.  Returns ``(opt_state,
+        infos)`` with each info stacked over the epochs x minibatches."""
         cfg = self.cfg
         g = generator if generator is not None else self.generator
         M = flat["a_logp"].shape[0]
@@ -419,16 +592,17 @@ class ADDAgent:
             for b in range(num_batches):
                 batch = {k: v[idx[b]].reshape((mb_size,) + v.shape[2:]) for k, v in blocks.items()}
                 loss, info = self._loss(net, batch)
-                grads = torch.autograd.grad(loss, params)
+                grads = self._mean_grads(torch.autograd.grad(loss, params))
                 opt_state = self._opt_step(net, grads, opt_state)
                 infos.append(info)
         return opt_state, {k: torch.stack([i[k] for i in infos]) for k in infos[0]}
 
     def update_model(self, ts: TrainState, data, perms=None,
                      generator: torch.Generator | None = None):
-        """Epoch/minibatch PPO+ADD updates on one device; the parameters
-        are updated in place.  Returns ``(ts, info)`` with each info the
-        mean over all minibatch steps."""
+        """Epoch/minibatch PPO+ADD updates on this rank's data; the
+        parameters are updated in place.  Returns ``(ts, info)`` with each
+        info the mean over all minibatch steps (and over the ranks, once
+        after the last step)."""
         cfg = self.cfg
         T, N = data["reward"].shape
         cols = {k: data[k] for k in UPDATE_FIELDS}
@@ -440,7 +614,9 @@ class ADDAgent:
         num_batches = int(np.ceil(T / cfg.batch_size))
         opt_state, infos = self._epoch_scan(
             ts.params, ts.opt_state, flat, num_batches, N, perms, generator)
-        return replace(ts, opt_state=opt_state), {k: v.mean() for k, v in infos.items()}
+        info = {k: v.mean() for k, v in infos.items()}
+        info = dict(zip(info, self.dist.all_reduce_mean(torch.stack(list(info.values())))))
+        return replace(ts, opt_state=opt_state), info
 
     # ------------------------------------------------------------ train iter
 
@@ -449,7 +625,8 @@ class ADDAgent:
                    hook=None):
         """One training iteration: rollout, train data, model update, then
         the normalizer updates (while ``sample_count`` is below
-        ``normalizer_samples``).  ``draws`` (see :meth:`rollout_lean`) and
+        ``normalizer_samples``); ``sample_count`` grows by the steps of all
+        ranks' envs.  ``draws`` (see :meth:`rollout_lean`) and
         ``perms`` (see :meth:`_epoch_scan`) replace the random draws.
         ``hook``, if given, is called with "rollout", "data" and "update"
         as each phase has been issued (``chip_smoke.py`` records a CUDA
@@ -467,8 +644,13 @@ class ADDAgent:
 
         with torch.no_grad():
             update = ts.sample_count < cfg.normalizer_samples
-            new_obs = norm.update_normalizer_from_stats(ts.obs_norm, *obs_stats)
-            new_disc = norm.update_diff_normalizer(ts.disc_norm, traj["disc_diff"])
+            new_obs = norm.update_normalizer_from_stats(ts.obs_norm, *self._global_sum(*obs_stats))
+            diff = traj["disc_diff"].reshape((-1,) + tuple(ts.disc_norm.mean_abs.shape)).float()
+            n_all = diff.shape[0] * self.dist.world_size
+            # each rank's mean |x| weighted by its share of the samples and
+            # summed: the mean over all ranks (the rank's own mean at one rank)
+            mean_abs = self._global_sum(diff.abs().mean(0) * (diff.shape[0] / n_all))
+            new_disc = norm.update_diff_normalizer_from_stats(ts.disc_norm, float(n_all), mean_abs)
             pick = lambda new, old, names: replace(new, **{
                 f: torch.where(update, getattr(new, f), getattr(old, f)) for f in names})
             T, N = data["reward"].shape
@@ -476,18 +658,22 @@ class ADDAgent:
                 ts,
                 obs_norm=pick(new_obs, ts.obs_norm, ("count", "mean", "mean_sq")),
                 disc_norm=pick(new_disc, ts.disc_norm, ("count", "mean_abs")),
-                sample_count=ts.sample_count + cfg.steps_per_iter * N,
+                sample_count=ts.sample_count + cfg.steps_per_iter * N * self.dist.world_size,
             )
 
+            # means over all ranks' samples, from global sums and counts
             done = traj["done"]
             done_mask = (done != 0).float()
+            n = float(done.numel() * self.dist.world_size)
+            r_sum, len_sum, n_done, n_fail = self._global_sum(
+                data["reward"].sum(), torch.sum(traj["ep_time"] / self.env.ctrl_dt * done_mask),
+                done_mask.sum(), (done == int(DoneFlags.FAIL)).float().sum())
             info = dict(data_info, **train_info)
-            info["mean_reward"] = data["reward"].mean()
+            info["mean_reward"] = r_sum / n
             # at each done, ep_time is the finished episode's length
-            info["mean_ep_len"] = (torch.sum(traj["ep_time"] / self.env.ctrl_dt * done_mask)
-                                   / torch.clamp_min(done_mask.sum(), 1.0))
-            info["done_frac"] = done_mask.mean()
-            info["fail_frac"] = (done == int(DoneFlags.FAIL)).float().mean()
+            info["mean_ep_len"] = len_sum / torch.clamp_min(n_done, 1.0)
+            info["done_frac"] = n_done / n
+            info["fail_frac"] = n_fail / n
         return ts, env_state, obs, info
 
 

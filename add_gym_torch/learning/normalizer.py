@@ -4,8 +4,10 @@ Counterpart of ``add_gym_tpu/learning/normalizer.py``: the running
 mean/std normalizer (``NormState``) and the mean-absolute-value normalizer
 for ADD observation differences (``DiffNormState``), their init functions,
 the forward maps and the merges of a new batch (``update_normalizer``,
-``update_normalizer_from_stats``, ``update_diff_normalizer``), which
-return new states.
+``update_normalizer_from_stats``, ``update_diff_normalizer`` and
+``update_diff_normalizer_from_stats``), which return new states.  The
+from-stats forms take what data parallelism reduces over the ranks before
+the merge: a count with sums, or a count with the mean of |x|.
 """
 
 from __future__ import annotations
@@ -101,13 +103,19 @@ def diff_normalize(state: DiffNormState, x):
     return torch.clamp(x / d, -state.clip, state.clip)
 
 
-def update_diff_normalizer(state: DiffNormState, batch) -> DiffNormState:
-    """Merge a batch ``[..., shape]`` of differences (mean of |x|)."""
-    flat = batch.reshape((-1,) + tuple(state.mean_abs.shape)).float()
-    n_new = torch.tensor(float(flat.shape[0]), device=state.count.device)
+def update_diff_normalizer_from_stats(state: DiffNormState, n_new, mean_abs) -> DiffNormState:
+    """Merge a batch given by its sample count and its mean of |x| (under
+    data parallelism, the count and the mean over all ranks)."""
+    n_new = torch.as_tensor(n_new, dtype=torch.float32, device=state.count.device)
     total = state.count + n_new
     return replace(
         state,
         count=total,
-        mean_abs=(state.count / total) * state.mean_abs + (n_new / total) * flat.abs().mean(0),
+        mean_abs=(state.count / total) * state.mean_abs + (n_new / total) * mean_abs,
     )
+
+
+def update_diff_normalizer(state: DiffNormState, batch) -> DiffNormState:
+    """Merge a batch ``[..., shape]`` of differences (mean of |x|)."""
+    flat = batch.reshape((-1,) + tuple(state.mean_abs.shape)).float()
+    return update_diff_normalizer_from_stats(state, float(flat.shape[0]), flat.abs().mean(0))

@@ -21,9 +21,10 @@ def init_sampler(num_clips: int, num_segments: int, device="cpu") -> SamplerStat
     return SamplerState(errors=torch.ones((num_clips, num_segments), device=device))
 
 
-def update_errors(state: SamplerState, seg_sizes, clip_ids, timesteps,
-                  tracking_errors) -> SamplerState:
-    """EMA-update segment errors from rollout data."""
+def segment_stats(state: SamplerState, seg_sizes, clip_ids, timesteps, tracking_errors):
+    """Per-segment (error sum, sample count), each flat [num_clips *
+    num_segments]: what :func:`update_errors_from_stats` merges, and what
+    data parallelism sums over the ranks first."""
     num_clips, num_segments = state.errors.shape
     sizes = torch.clamp_min(seg_sizes[clip_ids], 1e-6)
     seg_idx = torch.clamp((timesteps / sizes).to(torch.int64), 0, num_segments - 1)
@@ -32,6 +33,18 @@ def update_errors(state: SamplerState, seg_sizes, clip_ids, timesteps,
     total = torch.zeros(num_clips * num_segments, dtype=state.errors.dtype,
                         device=state.errors.device).index_add_(0, flat, tracking_errors)
     count = torch.zeros_like(total).index_add_(0, flat, torch.ones_like(tracking_errors))
+    return total, count
+
+
+def update_errors(state: SamplerState, seg_sizes, clip_ids, timesteps,
+                  tracking_errors) -> SamplerState:
+    """EMA-update segment errors from rollout data."""
+    return update_errors_from_stats(
+        state, *segment_stats(state, seg_sizes, clip_ids, timesteps, tracking_errors))
+
+
+def update_errors_from_stats(state: SamplerState, total, count) -> SamplerState:
+    """EMA-update the segments that have samples with their mean error."""
     mean = (total / torch.clamp_min(count, 1.0)).reshape(state.errors.shape)
     mask = (count > 0).reshape(state.errors.shape)
     return SamplerState(errors=torch.where(mask, 0.9 * state.errors + 0.1 * mean, state.errors))

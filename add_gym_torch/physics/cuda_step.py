@@ -12,6 +12,8 @@ per-env variant, the rest to its main variant; each counts its launches.
 A model with narrowphase tables (``model.attach_geoms``) sends the held
 narrowphase wrenches of ``fused_step.compute_np_ext`` into either variant
 as ``6 * n_np`` extra input rows, counted as well.
+:func:`sharded_cuda_step`, the counterpart of ``sharded_pallas_step``,
+launches the same kernel on one data-parallel rank's shard of the envs.
 
 The kernel is built at first use with ``nvcc`` into a shared library with a
 plain C interface under ``build/add_gym_torch/`` beside the package (the
@@ -38,7 +40,7 @@ import torch
 
 from add_gym_torch.physics.engine import EngineParams, SimState, is_per_env, mass_scale_or_none
 from add_gym_torch.physics.fused_step import (
-    FusedModelConstants, compute_np_ext, fused_step, np_rows,
+    FusedModelConstants, compute_np_ext, fused_step, np_rows, shard_params, sharded_fused_step,
 )
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -297,3 +299,31 @@ def cuda_step(fc: FusedModelConstants, params: EngineParams, state: SimState, pd
 cuda_step.launches = 0
 cuda_step.dr_launches = 0
 cuda_step.np_launches = 0
+
+
+def sharded_cuda_step(fc: FusedModelConstants, params: EngineParams, state: SimState,
+                      pd_target, shard):
+    """The control step on one rank's envs: the counterpart of the JAX
+    package's ``sharded_pallas_step`` (a ``shard_map`` of the Pallas kernel
+    over the env axis).
+
+    ``shard`` (``parallel.mesh.EnvShard``) names the rank's envs; ``state``
+    and ``pd_target`` hold only those.  Per-env parameter leaves of the
+    global env count are sliced to the shard and shared ones pass whole
+    (``fused_step.shard_params``; the env passes leaves already of the
+    local size, drawn for its shard); the narrowphase rows come from the
+    local state.  The step adds no arithmetic and no collective: each rank
+    launches the same kernel (:func:`cuda_step`, main or per-env variant,
+    with or without narrowphase rows) on its local ``[rows, N_local]``
+    block, on its device's current stream, counted in
+    ``sharded_cuda_step.launches`` as well as in ``cuda_step``'s counts.
+    CPU tensors go through the plain version, ``fused_step.sharded_fused_step``.
+    """
+    if not state.root_pos.is_cuda:
+        return sharded_fused_step(fc, params, state, pd_target, shard)
+    out = cuda_step(fc, shard_params(params, shard), state, pd_target)
+    sharded_cuda_step.launches += 1
+    return out
+
+
+sharded_cuda_step.launches = 0

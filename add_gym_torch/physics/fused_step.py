@@ -696,3 +696,33 @@ def fused_step(fc: FusedModelConstants, params: EngineParams, state: SimState, p
         dof_pos=q.T, dof_vel=qd.T, pd_target=tgt,
     )
     return new_state, contact.T
+
+
+def shard_params(params: EngineParams, shard) -> EngineParams:
+    """``params`` for the envs of ``shard`` (``parallel.mesh.EnvShard``).
+
+    The leaf rule of the JAX package's ``sharded_pallas_step``: a per-env
+    leaf whose leading dim is the *global* env count (gains ``[N, nd]``,
+    friction or mass scale ``[N]``) is sliced to the shard; shared leaves
+    (``[nd]`` gains, scalars) and per-env leaves already of the shard's
+    size pass whole.  Only the per-env ranks count (2-D gains, 1-D
+    friction and mass scale), so a dof count equal to the env count cannot
+    be taken for an env axis.
+    """
+    def leaf(x, per_env_ndim):
+        if (isinstance(x, torch.Tensor) and x.ndim == per_env_ndim
+                and x.shape[0] == shard.num_envs):
+            return x[shard.start:shard.stop]
+        return x
+
+    return replace(params, kp=leaf(params.kp, 2), kv=leaf(params.kv, 2),
+                   friction_mu=leaf(params.friction_mu, 1),
+                   mass_scale=leaf(params.mass_scale, 1))
+
+
+def sharded_fused_step(fc: FusedModelConstants, params: EngineParams, state: SimState,
+                       pd_target, shard):
+    """The plain version of ``cuda_step.sharded_cuda_step``: ``fused_step``
+    on the shard's envs (``state`` and ``pd_target`` hold only those),
+    with the per-env leaves of ``params`` sliced by :func:`shard_params`."""
+    return fused_step(fc, shard_params(params, shard), state, pd_target)

@@ -1,7 +1,7 @@
 """Hydra-compatible YAML config groups (no hydra dependency).
 
 Counterpart of ``add_gym_tpu/utils/config.py`` over the port's own config
-groups (``add_gym_torch/configs``: agent/engine/robot/task).  Same layout:
+groups (``add_gym_torch/configs``: agent/engine/robot/task/distributed).  Same layout:
 a top-level file with a ``defaults`` list of ``group: name`` entries
 resolved from ``configs/<group>/<name>.yaml``, plus dotted CLI overrides
 (``engine.num_envs=4096``, ``agent.learning_rate=3e-4``).
@@ -79,7 +79,7 @@ def load_config(
             raise ValueError(f"Override must be key=value, got: {ov}")
         k, v = ov.split("=", 1)
         # allow group swaps like "agent=other_agent"
-        if "." not in k and k in ("agent", "engine", "robot", "task"):
+        if "." not in k and k in ("agent", "engine", "robot", "task", "distributed"):
             with open(os.path.join(root, k, f"{v}.yaml")) as f:
                 cfg[k] = yaml.safe_load(f) or {}
         else:

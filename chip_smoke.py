@@ -27,7 +27,7 @@ Phases (any failure exits non-zero; nothing here catches its own error):
 3. The rollout: ``build_env`` / ``build_agent`` from config ``train`` on the
    G1-shaped fixture and a synthetic clip, 4096 envs, the default agent
    (``fc_3layers_1024units``, bf16 mixed precision), 32-step
-   ``rollout_lean``: one warm-up and three timed rollouts through the
+   ``rollout_lean``: one warm-up and two timed rollouts through the
    kernel, with every traj tensor finite and exactly 32 kernel launches
    per rollout.  Before that, a small check: the same 4-step f32 rollout
    at 64 envs through the kernel and through the plain step agrees.
@@ -37,24 +37,53 @@ Phases (any failure exits non-zero; nothing here catches its own error):
    of ``compute_np_ext`` per control step (the cost outside the kernel),
    with its device op count from ``torch.profiler``.
 5. Training, config ``train`` (main variant): ``train_iter`` at 4096 envs
-   x 32 steps, 5 epochs x 8 minibatches of 16,384, as ``bench.py`` times
-   it: 2 warm-up iterations, one discarded 5-iteration ramp window, then
-   the median of three 5-iteration windows -> train env-steps/s; the
+   x 32 steps, 5 epochs x 8 minibatches of 16,384, with ``bench.py``'s
+   protocol shortened to keep the smoke near two minutes: 1 warm-up
+   iteration, one discarded 3-iteration ramp window, then the median of
+   three 3-iteration windows -> train env-steps/s; the
    CUDA-event split of one more iteration into rollout / build_train_data
    / update_model, and the peak device memory of the timed windows.
 6. Training, config ``dr_pod`` (per-env variant) at 4096 envs: one warm-up
-   and three timed iterations; exactly 32 per-env launches per iteration,
+   and two timed iterations; exactly 32 per-env launches per iteration,
    finite infos, parameters that changed.
 7. Training, config ``train`` with ``engine.general_narrowphase=true`` at
    4096 envs (the main variant with the narrowphase rows): one warm-up and
-   three timed iterations; exactly 32 launches with rows per iteration,
+   two timed iterations; exactly 32 launches with rows per iteration,
    finite infos, parameters that changed; env-steps/s and peak memory.
 8. ``utils.debug.parity_check`` on that env at 256 envs: the kernel with
    the rows against the reference-layout engine (``engine.step``).
-9. The kernel line, the card's name and power limit, and the result line.
+9. The sharded step in one process: 4096 global envs split into 2 and 4
+   shards, ``sharded_cuda_step`` per shard (global-size per-env leaves
+   sliced to it) concatenated against ``cuda_step`` on all 4096 envs, bit
+   for bit, for the main and the per-env instance; each shard against the
+   plain sharded step within ``step_tolerances``.  With narrowphase rows
+   the rows come from each shard's own state, and ``compute_np_ext`` is not
+   bit for bit the same at another env count (its batched products), so
+   that instance is held bit for bit on the same rows (the unsharded input
+   block cut per shard) and the sharded wrapper within ``step_tolerances``.
+   Then ms per launch at 2048 and 1024 envs (CUDA events over 100
+   launches) beside the bound, and the plain sharded step at 2048.
+10. The CLI on the card, one rank under NCCL: ``python -m
+   torch.distributed.run --standalone --nproc_per_node=1 -m
+   add_gym_torch.cli.train train`` at 4096 envs (the G1-shaped fixture, the
+   synthetic clip, bf16 ``fc_3layers_1024units``) for 2 iterations with a
+   50-step evaluation, then again to iteration 3 (an auto-resume), then
+   ``mode=test checkpoint=...`` in this process, without a launcher.  Checks the resumed
+   state's digest against the saved one, ``config.json``, ``log.txt``,
+   ``metrics.jsonl`` (3 rows, ``sample_count`` 3 x 32 x 4096) and the test
+   mode's JSON line.
+11. Two ranks on the one card under gloo (NCCL takes one rank per device):
+   ``torch.distributed.run --nproc_per_node=2`` runs this script as a rank
+   (``--two-rank-worker``), each a ``Trainer`` on 2048 of 4096 global envs
+   for 2 iterations at full width.  Checks that both ranks hold the same
+   parameters and Adam moments bit for bit, that each launched the kernel
+   32 times an iteration through ``sharded_cuda_step`` on 2048 envs, and
+   that the losses are finite; prints the rate as two ranks sharing one
+   card (the collectives' cost on one card, no multi-GPU figure).
+12. The kernel line, the card's name and power limit, and the result line.
 
-Each path (3, 5, 6, 7) is driven with the launch counts set to 0 just
-before it and read just after.  Each log line starts with the seconds since the
+Each path (3, 5, 6, 7, 11) is driven with the launch counts set to 0 just
+before it and read just after (phase 11 in each rank's own process).  Each log line starts with the seconds since the
 start; the JSON lines, the card's line and the result line are printed
 bare.  The kernel-vs-plain ``train_iter`` check of ``dr_pod`` is a
 card-only test (``tests/test_torch_cuda.py``).  It imports nothing of JAX
@@ -64,8 +93,11 @@ or of the JAX package.  Fixture files and the kernel library go under ``build/``
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -75,12 +107,14 @@ import numpy as np
 import torch
 
 from add_gym_torch.builder import build_agent, build_env
+from add_gym_torch.cli.train import main as cli_main
+from add_gym_torch.parallel.mesh import EnvShard
 from add_gym_torch.physics import cuda_step as cs
 from add_gym_torch.physics import engine as eng
 from add_gym_torch.physics import testing as fx
 from add_gym_torch.physics.engine import EngineParams, SimState
 from add_gym_torch.physics.fused_step import (
-    FusedModelConstants, compute_np_ext, fused_step, np_rows,
+    FusedModelConstants, compute_np_ext, fused_step, np_rows, sharded_fused_step,
 )
 from add_gym_torch.physics.model import attach_geoms, build_physics_model
 from add_gym_torch.physics.narrowphase import geom_f_ext
@@ -94,19 +128,22 @@ DEVICE = "cuda"
 FIXTURES = os.path.join(ROOT, "build", "add_gym_torch", "fixtures")
 NUM_ENVS = 4096
 STEPS = 32
-TIMED_ROLLOUTS = 3
+TIMED_ROLLOUTS = 2
 TIMING_LAUNCHES = 100
 PLAIN_CALLS = 3           # the plain step takes ~0.25 s per call at 4096 envs on an H100
 MAIN_COMPARE_STEPS = 4    # phase 2 (the main variant)
 DR_COMPARE_STEPS = 8      # phase 2b (the per-env variant)
 NP_COMPARE_STEPS = 4      # phase 2c (the narrowphase rows)
 NP_EXT_CALLS = 20         # phase 4: compute_np_ext calls timed
-NP_TIMED = 3              # phase 7: timed train iterations
+NP_TIMED = 2              # phase 7: timed train iterations
 PARITY_ENVS = 256         # phase 8
-TRAIN_WARMUP = 2          # bench.py's protocol: warm-up iterations,
-TRAIN_WINDOW = 5          # iterations per window,
+SHARD_ENVS = (2048, 1024)  # phase 9: per-rank shapes of 2 and 4 ranks at 4096 envs
+CLI_EVAL_LEN = 0.5        # phase 10: episode cap of the run (50 control steps)
+SUBPROCESS_TIMEOUT = 300
+TRAIN_WARMUP = 1          # bench.py's protocol, shortened: warm-up iterations,
+TRAIN_WINDOW = 3          # iterations per window (bench.py: 2 and 5),
 TRAIN_WINDOWS = 3         # timed windows after one discarded ramp window
-DR_TIMED = 3
+DR_TIMED = 2
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM rate
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
@@ -344,6 +381,7 @@ def reset_counts():
     cs.cuda_step.launches = 0
     cs.cuda_step.dr_launches = 0
     cs.cuda_step.np_launches = 0
+    cs.sharded_cuda_step.launches = 0
 
 
 def phase_slice(g1_path, clip_path):
@@ -488,7 +526,7 @@ def _train_iters(agent, state, g, iters, where):
 
 
 def phase_train(g1_path, clip_path):
-    """Config train at 4096 envs, timed as bench.py times it."""
+    """Config train at 4096 envs, timed with bench.py's protocol (shortened)."""
     env, agent, state, g = _train_setup("train", g1_path, clip_path, seed=10)
     a = agent.cfg
     if not env.kernel or env.dr.enabled:
@@ -643,6 +681,247 @@ def phase_parity(env):
         + " ".join(f"{k}={v:.3e}" for k, v in errs.items()))
 
 
+def _cut(state, sl):
+    return SimState(**{f: getattr(state, f)[sl] for f in fx.STATE_FIELDS})
+
+
+def _sharded_instance(fc, params, state, cmd, np_instance):
+    """Phase 9 for one kernel instance; returns (max abs error against the
+    plain sharded step, max abs difference of the concatenated shards from
+    the unsharded kernel)."""
+    whole, contact = cs.cuda_step(fc, params, state, cmd)
+    if np_instance:
+        inp = cs.pack_state(state, cmd, params, None,
+                            compute_np_ext(fc, params, params.ctrl_dt / params.substeps, state))
+        ref = cs.launch_control_step(fc, params, inp)
+    worst, diff = 0.0, 0.0
+    for shards in (2, 4):
+        k = NUM_ENVS // shards
+        parts = []
+        for r in range(shards):
+            sh = EnvShard(r * k, (r + 1) * k, NUM_ENVS)
+            local, lcmd = _cut(state, sh.slice), cmd[sh.slice]
+            got = cs.sharded_cuda_step(fc, params, local, lcmd, sh)
+            want = sharded_fused_step(fc, params, local, lcmd, sh)
+            for f, tol in fx.step_tolerances().items():
+                a = got[1] if f == "contact" else getattr(got[0], f)
+                b = want[1] if f == "contact" else getattr(want[0], f)
+                torch.testing.assert_close(a, b, **tol, msg=lambda m: f"shard {r}/{shards} {f}: {m}")
+                worst = max(worst, (a - b).abs().max().item())
+            parts.append(got)
+            if np_instance:
+                out = cs.launch_control_step(fc, cs.shard_params(params, sh),
+                                             inp[:, sh.slice].contiguous())
+                if not torch.equal(out, ref[:, sh.slice]):
+                    raise AssertionError(f"np instance, shard {r}/{shards}: the kernel on the "
+                                         "same rows differs from the unsharded launch")
+        cat = {f: torch.cat([getattr(p[0], f) for p in parts]) for f in fx.STATE_FIELDS}
+        cat["contact"] = torch.cat([p[1] for p in parts])
+        want_all = {**{f: getattr(whole, f) for f in fx.STATE_FIELDS}, "contact": contact}
+        for f, v in cat.items():
+            diff = max(diff, (v - want_all[f]).abs().max().item())
+            if np_instance:
+                torch.testing.assert_close(v, want_all[f], **fx.step_tolerances()[f])
+            elif not torch.equal(v, want_all[f]):
+                raise AssertionError(f"{shards} shards: {f} differs from the unsharded kernel")
+    return worst, diff
+
+
+def phase_sharded(g1_path):
+    """sharded_cuda_step at 4096 global envs over 2 and 4 shards, and its
+    time per launch at the per-rank shapes."""
+    worst = 0.0
+    for name, per, geoms in (("main", False, False), ("per-env", True, False),
+                             ("narrowphase rows", False, True)):
+        model, fc, params = model_setup(g1_path, "g1", geoms=geoms)
+        if per:
+            params = per_env(params, NUM_ENVS, seed=40)      # global-size leaves
+        if geoms:
+            state, cmd = bent_state(model, NUM_ENVS, seed=41)
+        else:
+            fields, cmd = fx.random_sim_state(model, NUM_ENVS, seed=42, height=fx.G1_PELVIS_HEIGHT)
+            state, cmd = sim_state(fields, DEVICE), torch.as_tensor(cmd, device=DEVICE)
+        err, diff = _sharded_instance(fc, params, state, cmd, geoms)
+        worst = max(worst, err)
+        log(f"[phase 9] {name} instance, 4096 envs over 2 and 4 shards: "
+            + ("bitwise equal to the unsharded kernel" if not geoms else
+               f"the kernel bitwise equal on the same rows; with each shard's own rows "
+               f"max abs diff {diff:.3e} from the unsharded step")
+            + f"; max abs err against the plain sharded step {err:.3e}")
+
+    model, fc, params = model_setup(g1_path, "g1")
+    fields, cmd = fx.random_sim_state(model, NUM_ENVS, seed=43, height=fx.G1_PELVIS_HEIGHT)
+    state, cmd = sim_state(fields, DEVICE), torch.as_tensor(cmd, device=DEVICE)
+    fbuf, ibuf, counts = cs.pack_model(fc, params)
+    nb, nd, ncp, nsph, npair, substeps, n_np = counts
+    times = {}
+    for n in SHARD_ENVS:
+        sh = EnvShard(0, n, NUM_ENVS)
+        local, lcmd = _cut(state, sh.slice), cmd[sh.slice]
+        inp = cs.pack_state(local, lcmd, params)
+        kernel_ms = _time_ms(lambda: cs.launch_control_step(fc, params, inp), TIMING_LAUNCHES)
+        plain_ms = (_time_ms(lambda: sharded_fused_step(fc, params, local, lcmd, sh), PLAIN_CALLS)
+                    if n == SHARD_ENVS[0] else None)
+        flops = control_step_flops(nb, nd, ncp, npair, substeps) * n
+        io_bytes = control_step_bytes(fbuf, ibuf, n, nb, nd)
+        bound_ms = max(flops / PEAK_F32, io_bytes / PEAK_BYTES) * 1e3
+        bound_by = "operations" if flops / PEAK_F32 >= io_bytes / PEAK_BYTES else "bytes"
+        times[n] = (kernel_ms, plain_ms, bound_ms, bound_by)
+        log(f"[phase 9] sharded launch at {n} envs (one rank's shard of {NUM_ENVS}): kernel "
+            f"{kernel_ms:.4f} ms/launch (CUDA events, {TIMING_LAUNCHES} launches)"
+            + (f", plain sharded step {plain_ms:.4f} ms/call ({PLAIN_CALLS} calls)" if plain_ms else "")
+            + f"; bound {bound_ms:.5f} ms by {bound_by} ({io_bytes} bytes)")
+    return worst, times
+
+
+def _run(cmd, where, env=None):
+    """Run a subprocess to its end; fails the smoke with its output's tail
+    if it fails.  Returns its standard output."""
+    log(f"[{where}] $ {' '.join(cmd)}")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=SUBPROCESS_TIMEOUT, env=env)
+    if proc.returncode != 0:
+        raise AssertionError(f"{where}: exit {proc.returncode}\n{proc.stdout[-4000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    log(f"[{where}] exit 0 in {time.perf_counter() - t0:.1f} s")
+    return proc.stdout
+
+
+def _digests(out, word):
+    """The state digests printed by Trainer.save / load ('Saved' / 'Loaded')."""
+    return [line.rsplit("sha256 ", 1)[1].rstrip(")") for line in out.splitlines()
+            if line.startswith(word) and "sha256" in line]
+
+
+def _torchrun(nproc):
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            f"--nproc_per_node={nproc}"]
+
+
+def phase_cli(g1_path, clip_path):
+    """The CLI through torch.distributed.run, one rank under NCCL."""
+    logs = os.path.join(ROOT, "build", "add_gym_torch", "smoke_logs")
+    if os.path.isdir(logs):
+        import shutil
+
+        shutil.rmtree(logs)
+    args = ["train", f"robot.asset_path={g1_path}", f"task.motion_file={clip_path}",
+            f"engine.num_envs={NUM_ENVS}", f"task.max_episode_length={CLI_EVAL_LEN}",
+            f"test_episodes={NUM_ENVS}", f"log_dir={logs}", "experiment_name=cli",
+            "distributed.backend=nccl"]
+    cli = ["-m", "add_gym_torch.cli.train"]
+    out1 = _run(_torchrun(1) + cli + args + ["max_iters=2"], "phase 10")
+    out2 = _run(_torchrun(1) + cli + args + ["max_iters=3"], "phase 10")
+    exp = os.path.join(logs, "cli")
+    ckpt = os.path.join(exp, "checkpoint")
+    # mode=test in this process, without a launcher
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        test_info = cli_main(args + ["mode=test", f"checkpoint={ckpt}"])
+    out3 = buf.getvalue()
+
+    saved1, loaded2, saved2 = _digests(out1, "Saved"), _digests(out2, "Loaded"), _digests(out2, "Saved")
+    if not (saved1 and loaded2 and loaded2[0] == saved1[-1]):
+        raise AssertionError(f"the resumed state {loaded2} is not the saved one {saved1[-1:]}")
+    if f"at iter 2" not in out2:
+        raise AssertionError("the second run did not resume at iteration 2")
+    if _digests(out3, "Loaded")[-1] != saved2[-1]:
+        raise AssertionError("mode=test loaded another state than the last one saved")
+    with open(os.path.join(exp, "config.json")) as f:
+        cfg = json.load(f)
+    if cfg["engine"]["num_envs"] != NUM_ENVS or cfg["agent"]["actor_net"] != "fc_3layers_1024units":
+        raise AssertionError(f"config.json: {cfg['engine']} {cfg['agent']}")
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    per_iter = STEPS * NUM_ENVS
+    if [r["samples"] for r in rows] != [per_iter, 2 * per_iter, 3 * per_iter]:
+        raise AssertionError(f"metrics.jsonl samples {[r['samples'] for r in rows]}")
+    if not all(math.isfinite(r["loss"]) for r in rows) or rows[0]["test_num_eps"] < 1:
+        raise AssertionError(f"metrics.jsonl rows: {rows}")
+    with open(os.path.join(exp, "log.txt")) as f:
+        lines = f.read().splitlines()
+    if len(lines) != 5 or not lines[0].split()[0] == "samples":
+        raise AssertionError(f"log.txt has {len(lines)} lines, expected 2 headers and 3 rows")
+    if json.loads(out3.splitlines()[-1]) != test_info:
+        raise AssertionError(f"mode=test printed {out3.splitlines()[-1:]}, returned {test_info}")
+    if test_info["num_eps"] < 1 or not math.isfinite(test_info["mean_return"]):
+        raise AssertionError(f"mode=test printed {test_info}")
+    log(f"[phase 10] resumed at iter 2 with the saved state (sha256 {saved1[-1][:16]}...); "
+        f"metrics.jsonl samples {[r['samples'] for r in rows]}; train iteration 2 "
+        f"{rows[1]['env_steps_per_s']:.1f} env-steps/s, iteration 3 "
+        f"{rows[2]['env_steps_per_s']:.1f}; eval at iteration 0: {rows[0]['test_num_eps']:.0f} "
+        f"episodes, mean return {rows[0]['test_mean_return']:.4f}; mode=test {test_info}")
+    return dict(rate_iter2=rows[1]["env_steps_per_s"], rate_iter3=rows[2]["env_steps_per_s"],
+                test=test_info)
+
+
+def two_rank_worker(out_dir, g1_path, clip_path):
+    """One rank of phase 11 (started by torch.distributed.run): a Trainer on
+    its 2048 envs for 2 iterations; writes its digest and counts."""
+    from add_gym_torch.learning.add_agent import state_digest
+    from add_gym_torch.learning.runner import Trainer
+    from add_gym_torch.parallel.mesh import initialize_distributed
+
+    cfg = _slice_cfg(g1_path, clip_path, NUM_ENVS, STEPS)
+    cfg.update(test_episodes=0, log_dir=os.path.join(out_dir, "logs"), experiment_name="two_rank")
+    os.environ["LOCAL_RANK"] = "0"          # both ranks on the one card
+    dist = initialize_distributed("cuda", backend="gloo")
+    try:
+        trainer = Trainer(cfg, dist=dist)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer.train(max_iters=2)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        result = dict(rank=dist.rank, world=dist.world_size, device=str(dist.device),
+                      local_envs=int(trainer.es.sim.root_pos.shape[0]),
+                      launches=cs.cuda_step.launches, sharded=cs.sharded_cuda_step.launches,
+                      dr=cs.cuda_step.dr_launches, np=cs.cuda_step.np_launches,
+                      digest=state_digest(trainer.ts), seconds=seconds,
+                      sample_count=int(trainer.ts.sample_count))
+        with open(os.path.join(out_dir, f"rank{dist.rank}.json"), "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.close()
+
+
+def phase_two_ranks(g1_path, clip_path):
+    """Two ranks on the one card under gloo through torch.distributed.run."""
+    out_dir = os.path.join(ROOT, "build", "add_gym_torch", "two_rank")
+    if os.path.isdir(out_dir):
+        import shutil
+
+        shutil.rmtree(out_dir)
+    os.makedirs(out_dir)
+    _run(_torchrun(2) + [os.path.abspath(__file__), "--two-rank-worker", out_dir, g1_path,
+                         clip_path], "phase 11")
+    res = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    with open(os.path.join(out_dir, "logs", "two_rank", "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    if res[0]["digest"] != res[1]["digest"]:
+        raise AssertionError("the two ranks hold different parameters or Adam moments")
+    for r in res:
+        want = dict(world=2, local_envs=NUM_ENVS // 2, launches=2 * STEPS, sharded=2 * STEPS,
+                    dr=0, np=0, sample_count=2 * STEPS * NUM_ENVS)
+        if any(r[k] != v for k, v in want.items()):
+            raise AssertionError(f"rank {r['rank']}: {r}, expected {want}")
+    if len(rows) != 2 or not all(math.isfinite(x["loss"]) for x in rows):
+        raise AssertionError(f"metrics.jsonl of the two ranks: {rows}")
+    log(f"[phase 11] two ranks (gloo) sharing one card, {NUM_ENVS // 2} envs each: state sha256 "
+        f"{res[0]['digest'][:16]}... on both; launches per rank {res[0]['sharded']} "
+        f"({res[0]['sharded'] // 2} per iteration, devices {res[0]['device']}/{res[1]['device']}); "
+        f"losses {[round(x['loss'], 4) for x in rows]}; iteration 2: "
+        f"{rows[1]['env_steps_per_s']:.1f} env-steps/s over both ranks (two ranks sharing one "
+        f"card: the collectives' cost on one card, not a multi-GPU rate)")
+    return dict(launches=sum(r["sharded"] for r in res), rate=rows[1]["env_steps_per_s"],
+                iter_seconds=[x["iter_seconds"] for x in rows])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -678,6 +957,9 @@ def main() -> int:
     train_dr = phase_train_dr(g1_path, clip_path)
     np_env, train_np = phase_train_np(g1_path, clip_path)
     phase_parity(np_env)
+    worst_sharded, shard_times = phase_sharded(g1_path)
+    cli = phase_cli(g1_path, clip_path)
+    two = phase_two_ranks(g1_path, clip_path)
 
     entries = []
     for name, key, launches, errs, replaces in (
@@ -699,6 +981,20 @@ def main() -> int:
             "bound_by": bound_by,
             "library_ms": None,
         })
+    kernel_ms, plain_ms, bound_ms, bound_by = shard_times[SHARD_ENVS[0]]
+    entries.append({
+        "name": "control_step_sharded",
+        "route": "cuda",
+        "source": "add_gym_torch/csrc/control_step.cu",
+        "replaces": "add_gym_tpu/physics/pallas_step.py:347",
+        "launches": two["launches"],
+        "max_abs_err": worst_sharded,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    })
     print(json.dumps({"kernels": entries}))
     print(json.dumps({
         "rollout_env_steps_per_s": env_steps_per_s,
@@ -710,6 +1006,11 @@ def main() -> int:
         "np_train_peak_device_bytes": train_np["peak_bytes"],
         "compute_np_ext_ms": np_ext["ms"], "compute_np_ext_device_ops": np_ext["device_ops"],
         "np_per_env_max_abs_err": max(worst_np[True].values()),
+        "sharded_ms_per_launch": {str(n): t[0] for n, t in shard_times.items()},
+        "sharded_bound_ms": {str(n): t[2] for n, t in shard_times.items()},
+        "cli_env_steps_per_s": [cli["rate_iter2"], cli["rate_iter3"]],
+        "two_ranks_one_card_env_steps_per_s": two["rate"],
+        "smoke_seconds": time.perf_counter() - T_START,
         "num_envs": NUM_ENVS, "steps_per_iter": STEPS,
     }))
     smi = subprocess.run(
@@ -724,4 +1025,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--two-rank-worker"]:
+        two_rank_worker(*sys.argv[2:5])
+        sys.exit(0)
     sys.exit(main())

@@ -11,7 +11,10 @@ one step, and rtol = atol = 1e-3 for a 4-step rollout.  The per-env
 a small ``train_iter`` on the ``dr_pod`` config runs through it.  Both
 variants with the held narrowphase rows (the G1-shaped fixture with its
 geom tables) are held to the plain step too, and two ``compute_np_ext``
-calls on the same input must give the same bits.
+calls on the same input must give the same bits.  The sharded step
+(``sharded_cuda_step``, per-rank launches of the same kernel) concatenated
+over 2 and 4 shards equals the unsharded kernel bit for bit at 4096 envs,
+and a one-rank ``Trainer`` on the card saves and resumes bit for bit.
 """
 
 import dataclasses
@@ -21,6 +24,9 @@ import pytest
 import torch
 
 from add_gym_torch.builder import build_agent, build_env
+from add_gym_torch.learning.add_agent import state_digest
+from add_gym_torch.learning.runner import Trainer
+from add_gym_torch.parallel.mesh import EnvShard
 from add_gym_torch.physics import cuda_step as cs
 from add_gym_torch.physics import testing as fx
 from add_gym_torch.physics.engine import EngineParams, SimState
@@ -257,3 +263,53 @@ def test_dr_train_iter_through_kernel_matches_plain_step(paths):
     for k in infos[0]:
         torch.testing.assert_close(infos[0][k], infos[1][k], rtol=1e-2, atol=1e-2,
                                    msg=lambda m: f"{k}: {m}")
+
+
+@pytest.mark.parametrize("per_env", [False, True], ids=["main", "per_env"])
+def test_sharded_kernel_matches_unsharded_bitwise(paths, per_env):
+    """4096 envs of the G1-shaped fixture split into 2 and 4 shards: each
+    shard's launch (global-size per-env leaves sliced to it) concatenated
+    gives the unsharded kernel's bits, since the kernel is one thread per
+    env."""
+    model, fc, params = _model(paths["g1"], True)
+    n = 4096
+    if per_env:
+        pe = fx.per_env_params(params.kp.cpu().numpy(), params.kv.cpu().numpy(), n, seed=17)
+        params = dataclasses.replace(
+            params, **{k: torch.as_tensor(v, device="cuda") for k, v in pe.items()})
+    fields, cmd = fx.random_sim_state(model, n, seed=18, height=fx.G1_PELVIS_HEIGHT)
+    state = SimState(**{k: torch.as_tensor(v, device="cuda") for k, v in fields.items()})
+    cmd = torch.as_tensor(cmd, device="cuda")
+    whole, contact = cs.cuda_step(fc, params, state, cmd)
+    for shards in (2, 4):
+        k = n // shards
+        before = cs.sharded_cuda_step.launches
+        parts = [cs.sharded_cuda_step(
+            fc, params, SimState(**{f: v[r * k:(r + 1) * k] for f, v in state.__dict__.items()}),
+            cmd[r * k:(r + 1) * k], EnvShard(r * k, (r + 1) * k, n)) for r in range(shards)]
+        torch.cuda.synchronize()
+        assert cs.sharded_cuda_step.launches == before + shards
+        for f in fx.STATE_FIELDS:
+            assert torch.equal(torch.cat([getattr(p[0], f) for p in parts]), getattr(whole, f)), f
+        assert torch.equal(torch.cat([p[1] for p in parts]), contact)
+
+
+def test_trainer_save_resume_on_card(paths, tmp_path):
+    """A one-rank ``Trainer`` on the card: 2 iterations at 128 envs, save,
+    and a second ``Trainer`` resumes at iteration 2 with the same bits."""
+    cfg = load_config("train")
+    cfg["robot"]["asset_path"] = paths["g1"]
+    cfg["task"]["motion_file"] = paths["clip"]
+    cfg["engine"]["num_envs"] = 128
+    cfg["agent"]["steps_per_iter"] = 4
+    for k in ("actor_net", "critic_net", "disc_net"):
+        cfg["agent"][k] = "fc_2layers_64units"
+    cfg.update(device="cuda", test_episodes=0, log_dir=str(tmp_path), experiment_name="card")
+    t1 = Trainer(cfg)
+    assert t1.env.kernel
+    t1.train(max_iters=2)
+    t2 = Trainer(cfg)
+    assert t2.iter == 2 and int(t2.ts.sample_count) == 2 * 4 * 128
+    assert t2.ts.params.actor_mean.weight.is_cuda
+    assert state_digest(t2.ts) == state_digest(t1.ts)
+    t1.close(), t2.close()

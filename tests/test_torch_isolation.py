@@ -1,5 +1,6 @@
-"""The port stands alone: importing every module of ``add_gym_torch`` and
-``chip_smoke`` loads neither JAX (nor flax / optax) nor the JAX package.
+"""The port stands alone: importing every module of ``add_gym_torch`` (its
+subpackages ``parallel`` and ``cli`` included) and ``chip_smoke`` loads
+neither JAX (nor flax / optax) nor the JAX package.
 
 Runs in a fresh interpreter, since this test process has JAX loaded.
 """
@@ -22,7 +23,7 @@ for name in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "add_gym_tpu"))
-print(json.dumps({"modules": len(names), "bad": bad}))
+print(json.dumps({"modules": len(names), "names": names, "bad": bad}))
 """
 
 
@@ -34,5 +35,10 @@ def test_port_imports_no_jax():
     )
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out["modules"] >= 25, out
+    assert out["modules"] >= 47, out
+    # the data-parallel bootstrap, the trainer and the CLI are walked too
+    for name in ("add_gym_torch.parallel.mesh", "add_gym_torch.cli.train",
+                 "add_gym_torch.learning.runner", "add_gym_torch.utils.logger",
+                 "add_gym_torch.utils.remote"):
+        assert name in out["names"], name
     assert out["bad"] == [], f"the port imported {out['bad']}"
