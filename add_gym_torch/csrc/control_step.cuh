@@ -1,5 +1,5 @@
-// One physics control step for one env: the per-env body of the CUDA
-// kernel in control_step.cu.
+// One physics control step for one env, stepped by a team of threads: the
+// per-env body of the CUDA kernel in control_step.cu.
 //
 // Replaces add_gym_tpu/physics/pallas_step.py::_control_step_kernel in two
 // variants, each with or without the held narrowphase rows:
@@ -35,24 +35,41 @@
 //      joint-limit clamp.
 //   4. `contact` is the last substep's per-body normal force.
 //
-// Design and what bounds it.  One thread runs one env start to finish,
-// so there is no cross-thread communication.  Every per-env tensor is
-// env-minor ([rows, N] f32, row r of env e at r*N + e), so a warp's 32
-// threads read and write 32 neighbouring floats.  The model constants live
-// in one packed f32 buffer and one i32 buffer (layout below, written by
-// add_gym_torch/physics/cuda_step.py::pack_model), read through the cache
-// by every thread alike.  The per-env working set (the articulated-inertia
-// blocks A/B/D, bias forces, FK frames: about 90 floats per body, some
-// 11 KB for 30 bodies) is far beyond 255 registers, so it lives in local
-// memory and streams through L1/L2.  The kernel is therefore bound by that
-// local-memory traffic and by f32 arithmetic, not by its state I/O
-// (13 + 4*nd floats in, plus 2*nd + 2 in the per-env variant and 6*n_np
-// narrowphase rows, 13 + 3*nd + nb out per env).  A cooperative layout
-// (a warp per env, blocks in shared memory) is the way past that bound.
+// Design.  A team of threads steps one env together: on the card the team
+// is one warp, lane i owning body i and dof i - 1 (the joint of body i),
+// so a model of up to AGT_MAX_BODIES = 32 bodies fits.  The per-env working
+// set (AgtEnvScratch: FK frames, articulated-inertia blocks, bias forces and
+// the state, ~10.6 KB) lives in shared memory, body-minor: element k of
+// body i's field at field[k][i], so 32 lanes on one field touch 32 banks.
+// The step is a sequence of phases.  In each, the team spreads independent
+// items over its lanes (team.each, below: bodies, dofs, sphere pairs,
+// narrowphase rows) and syncs after it; an item writes only its own slots
+// and reads only what earlier phases wrote.  Work that is independent per
+// body (joint rotations, ground contact over the body's points in CSR
+// order, ABA pass 1, the joint torque) is one phase.  The tree passes go
+// level by level, one phase per level of the depth table packed with the
+// model: FK and ABA pass 3 root to leaves, ABA pass 2 leaves to root.  Every
+// sum across lanes is a loop of the owner lane in a fixed order, never an
+// atomic: ABA pass 2 adds a body's children in decreasing index (the
+// order of a serial loop from the last body down), and the held
+// self-collision sums each body's pairs in pair order.  So the result does
+// not depend on the team's size or on which lane ran which item: the host
+// build at team size 1 and 32 agree bit for bit (the CPU tests check it),
+// and two launches on one input give the same bits.  What is left serial
+// is the tree's depth (10 levels for the G1: waist 3 + arm 7) times a
+// body's ABA work, the root's 6x6 solve and integration on lane 0, and
+// each body's contact points.  The model constants live in one packed f32
+// buffer and one i32 buffer (layout below, written by
+// add_gym_torch/physics/cuda_step.py::pack_model), field-major so that
+// lanes reading one constant of 32 bodies read 32 neighbouring floats.
+// The I/O stays env-minor ([rows, N] f32, row r of env e at r*N + e):
+// 13 + 4*nd floats in, plus 2*nd + 2 in the per-env variant and 6*n_np
+// narrowphase rows, 13 + 3*nd + nb out per env, each a 4-byte access of
+// its lane.
 //
 // AGT_HD marks the functions for both compilers: nvcc builds them into
-// the kernel; a host compiler can build them too, which lets the CPU tests
-// check this arithmetic against the plain version.
+// the kernel; a host compiler builds them too, with AgtHostTeam, which lets
+// the CPU tests check this arithmetic against the plain version.
 #pragma once
 
 #include <math.h>
@@ -63,19 +80,30 @@
 #define AGT_HD inline
 #endif
 
-#define AGT_MAX_BODIES 32
+#if defined(__CUDA_ARCH__)
+#define AGT_LDG(p) __ldg(p)
+#else
+#define AGT_LDG(p) (*(p))
+#endif
 
-// f32 buffer layout (offsets in floats):
-//   header   [AGT_HDR]:        dt, max_torque, position_limit_margin,
-//                              max_target_delta, friction_mu, gravity, 0, 0
-//   bodies   [nb][AGT_BODY]:   C0[9] C1[9] C2[9] r[3] axis[3] IA_A[9]
-//                              IA_B[9] mass  (M_i = C0 + cos C1 + sin C2)
-//   dofs     [nd][AGT_DOF]:    armature damping frictionloss lo hi kp kv
-//   points   [ncp][AGT_PT]:    pos[3] radius k b stick_mass (CSR by body)
-//   spheres  [nsph][AGT_SPH]:  pos[3] radius
-//   pairs    [npair][AGT_PAIR]: radius_sum k_sc b_sc
-// i32 buffer: parent[nb], cp_start[nb + 1], sph_body[nsph], pair[npair][2],
-//             np_body[n_np] (sorted bodies of the narrowphase rows)
+#define AGT_MAX_BODIES 32
+#define AGT_PAIR_CHUNK 32  // sphere pairs per round of the held self-collision
+
+// f32 buffer layout (offsets in floats; each section field-major: element k
+// of item i at section + k * count + i):
+//   header   [AGT_HDR]:         dt, max_torque, position_limit_margin,
+//                               max_target_delta, friction_mu, gravity, 0, 0
+//   bodies   [AGT_BODY][nb]:    C0[9] C1[9] C2[9] r[3] axis[3] IA_A[9]
+//                               IA_B[9] mass  (M_i = C0 + cos C1 + sin C2)
+//   dofs     [AGT_DOF][nd]:     armature damping frictionloss lo hi kp kv
+//   points   [AGT_PT][ncp]:     pos[3] radius k b stick_mass (CSR by body)
+//   spheres  [AGT_SPH][nsph]:   pos[3] radius
+//   pairs    [AGT_PAIR][npair]: radius_sum k_sc b_sc
+// i32 buffer: parent[nb] (parent[i] < i), depth[nb + 1] (each body's depth
+//             in the tree, then the tree's depth), children[nb] (bit c of
+//             body i's mask set when parent[c] = i), cp_start[nb + 1],
+//             sph_body[nsph], pair[npair][2], np_body[n_np] (sorted, distinct
+//             bodies of the narrowphase rows)
 #define AGT_HDR 8
 #define AGT_BODY 52
 #define AGT_DOF 7
@@ -87,7 +115,60 @@ struct AgtModel {
   const float* f;
   const int* ib;
   int nb, nd, ncp, nsph, npair, substeps, n_np;
+
+  AGT_HD float hdr(int k) const { return AGT_LDG(f + k); }
+  AGT_HD const float* dofs() const { return f + AGT_HDR + nb * AGT_BODY; }
+  AGT_HD float body(int k, int i) const { return AGT_LDG(f + AGT_HDR + k * nb + i); }
+  AGT_HD float dof(int k, int j) const { return AGT_LDG(dofs() + k * nd + j); }
+  AGT_HD float point(int k, int p) const { return AGT_LDG(dofs() + nd * AGT_DOF + k * ncp + p); }
+  AGT_HD float sphere(int k, int s) const {
+    return AGT_LDG(dofs() + nd * AGT_DOF + ncp * AGT_PT + k * nsph + s);
+  }
+  AGT_HD float pair(int k, int q) const {
+    return AGT_LDG(dofs() + nd * AGT_DOF + ncp * AGT_PT + nsph * AGT_SPH + k * npair + q);
+  }
+  AGT_HD int parent(int i) const { return AGT_LDG(ib + i); }
+  AGT_HD int depth(int i) const { return AGT_LDG(ib + nb + i); }
+  AGT_HD int levels() const { return depth(nb); }
+  AGT_HD unsigned children(int i) const { return (unsigned)AGT_LDG(ib + 2 * nb + 1 + i); }
+  AGT_HD int cp_start(int i) const { return AGT_LDG(ib + 3 * nb + 1 + i); }
+  AGT_HD int sph_body(int s) const { return AGT_LDG(ib + 4 * nb + 2 + s); }
+  AGT_HD int pair_sphere(int q, int side) const {
+    return AGT_LDG(ib + 4 * nb + 2 + nsph + 2 * q + side);
+  }
+  AGT_HD int np_body(int j) const { return AGT_LDG(ib + 4 * nb + 2 + nsph + 2 * npair + j); }
 };
+
+// ------------------------------------------------------------------ team
+// A team steps one env.  team.each(count, f) calls f(t) once for every t in
+// [0, count), spread over the team's lanes, and syncs the team after it.
+// On the card the team is a warp (AgtWarp in control_step.cu: lane() is the
+// lane id, size() 32, sync() __syncwarp).  On the host AgtHostTeam runs
+// kSize lanes one after another, each phase for every lane in turn before
+// the next phase begins.  kSize = 1 is a plain serial step, items in
+// increasing order; larger teams run their lanes last to first, so that
+// an item reading a slot that a lower item of the same phase writes (a
+// child reading its parent) would see it unwritten and change the bits.
+#if !defined(__CUDACC__)
+template <int kSize>
+struct AgtHostTeam {
+  static constexpr int size() { return kSize; }
+  template <class F>
+  void each(int count, const F& f) const {
+    for (int lane = kSize - 1; lane >= 0; --lane)
+      for (int t = lane; t < count; t += kSize) f(t);
+  }
+};
+#endif
+
+// highest set bit of a non-zero mask
+AGT_HD int agt_msb(unsigned x) {
+#if defined(__CUDA_ARCH__)
+  return 31 - __clz(x);
+#else
+  return 31 - __builtin_clz(x);
+#endif
+}
 
 // ------------------------------------------------------------ 3x3 helpers
 // matrices row-major m[r*3+c]
@@ -127,112 +208,177 @@ AGT_HD float clampf(float x, float lo, float hi) { return fminf(fmaxf(x, lo), hi
 // ------------------------------------------------------------- per-env work
 
 // Gains, friction and mass scale of one env.  kPerEnv = false: kp/kv are
-// the shared values in the model buffer's dof rows (stride AGT_DOF) and mu
-// the header's; nothing is scaled by mass.  kPerEnv = true: kp/kv are
-// env-minor input rows (stride n) and mu, ms this env's values.
+// the shared values in the model buffer's kp/kv dof rows and mu the
+// header's; nothing is scaled by mass.  kPerEnv = true: kp/kv are env-minor
+// input rows (stride n) and mu, ms this env's values.
 template <bool kPerEnv>
 struct AgtEnvParams {
   const float* kp;  // kp of dof j at kp[j * stride]
   const float* kv;
   int n;            // env count: the row stride of the per-env variant
   float mu, ms;
-  AGT_HD float kp_of(int j) const { return kp[j * (kPerEnv ? n : AGT_DOF)]; }
-  AGT_HD float kv_of(int j) const { return kv[j * (kPerEnv ? n : AGT_DOF)]; }
+  AGT_HD float kp_of(int j) const { return AGT_LDG(kp + j * (kPerEnv ? n : 1)); }
+  AGT_HD float kv_of(int j) const { return AGT_LDG(kv + j * (kPerEnv ? n : 1)); }
   AGT_HD float scale(float x) const { return kPerEnv ? x * ms : x; }
 };
 
+typedef float AgtRow[AGT_MAX_BODIES];
+
+// One env's working set, body-minor (element k of body i at field[k][i]).
 struct AgtEnvScratch {
-  float W[AGT_MAX_BODIES][9];    // body -> world rotation
-  float M[AGT_MAX_BODIES][9];    // parent -> body joint rotation
-  float o[AGT_MAX_BODIES][3];    // world origin
-  float om[AGT_MAX_BODIES][3];   // world angular velocity
-  float vel[AGT_MAX_BODIES][3];  // world origin linear velocity
-  float A[AGT_MAX_BODIES][9];    // articulated inertia blocks [[A, B], [B^T, D]]
-  float B[AGT_MAX_BODIES][9];
-  float D[AGT_MAX_BODIES][9];
-  float pn[AGT_MAX_BODIES][3];   // bias force (angular, linear); pass 3 reuses
-  float pf[AGT_MAX_BODIES][3];   // these rows for the spatial accelerations
-  float cn[AGT_MAX_BODIES][3];   // velocity-product accelerations
-  float cf[AGT_MAX_BODIES][3];
-  float Ut[AGT_MAX_BODIES][3];   // U = Ia S (angular, linear)
-  float Ub[AGT_MAX_BODIES][3];
-  float dinv[AGT_MAX_BODIES];
-  float u[AGT_MAX_BODIES];
-  float scn[AGT_MAX_BODIES][3];  // held self-collision + narrowphase torque / force (world)
-  float scf[AGT_MAX_BODIES][3];
-  float q[AGT_MAX_BODIES], qd[AGT_MAX_BODIES], tgt[AGT_MAX_BODIES], tau[AGT_MAX_BODIES];
+  AgtRow W[9];    // body -> world rotation
+  AgtRow M[9];    // parent -> body joint rotation
+  AgtRow o[3];    // world origin
+  AgtRow om[3];   // world angular velocity
+  AgtRow vel[3];  // world origin linear velocity
+  // articulated inertia [[A, B], [B^T, D]]: A rows 0-8, B 9-17, D 18-26.
+  // ABA pass 2 leaves there what a body adds to its parent's blocks; the
+  // held self-collision uses the rows as its buffer of pair wrenches.
+  AgtRow ABD[27];
+  AgtRow pn[3];   // bias force (angular, linear); ABA pass 2 leaves there
+  AgtRow pf[3];   // what a body adds to its parent's, pass 3 the spatial acceleration
+  AgtRow cn[3];   // velocity-product accelerations
+  AgtRow cf[3];
+  AgtRow Ut[3];   // U = Ia S (angular, linear)
+  AgtRow Ub[3];
+  AgtRow dinv, u;
+  AgtRow scn[3];  // held self-collision + narrowphase torque / force (world)
+  AgtRow scf[3];
+  AgtRow q, qd, tgt, tau;  // by dof
+  float root[16];          // root pos 0-2, quat 3-6 (w x y z), vel 7-9, ang vel 10-12
 };
 
-AGT_HD void agt_fk(const AgtModel& m, AgtEnvScratch& s, const float* rp, const float* rq,
-                   const float* rv, const float* ra) {
-  const float* F = m.f;
-  const int* parent = m.ib;
-  float w = rq[0], x = rq[1], y = rq[2], z = rq[3];
-  float sc = 2.0f / (w * w + x * x + y * y + z * z);
-  float* W0 = s.W[0];
-  W0[0] = 1 - sc * (y * y + z * z); W0[1] = sc * (x * y - z * w); W0[2] = sc * (x * z + y * w);
-  W0[3] = sc * (x * y + z * w); W0[4] = 1 - sc * (x * x + z * z); W0[5] = sc * (y * z - x * w);
-  W0[6] = sc * (x * z - y * w); W0[7] = sc * (y * z + x * w); W0[8] = 1 - sc * (x * x + y * y);
-  for (int k = 0; k < 3; ++k) {
-    s.o[0][k] = rp[k];
-    s.om[0][k] = ra[k];
-    s.vel[0][k] = rv[k];
-  }
-  for (int i = 1; i < m.nb; ++i) {
-    const float* bc = F + AGT_HDR + i * AGT_BODY;
-    int p = parent[i];
-    float c = cosf(s.q[i - 1]), sn = sinf(s.q[i - 1]);
-    for (int k = 0; k < 9; ++k) s.M[i][k] = bc[k] + c * bc[9 + k] + sn * bc[18 + k];
-    mm33(s.W[p], s.M[i], s.W[i]);
-    float rw[3], axw[3], t[3];
-    mv33(s.W[p], bc + 27, rw);
-    mv33(s.W[i], bc + 30, axw);
-    cross3(s.om[p], rw, t);
-    for (int k = 0; k < 3; ++k) {
-      s.o[i][k] = s.o[p][k] + rw[k];
-      s.om[i][k] = s.om[p][k] + axw[k] * s.qd[i - 1];
-      s.vel[i][k] = s.vel[p][k] + t[k];
-    }
-  }
+template <int K>
+AGT_HD void agt_ld(const AgtRow* rows, int i, float* v) {
+  for (int k = 0; k < K; ++k) v[k] = rows[k][i];
 }
 
-// Held self-collision forces from the current FK frames into scn/scf.
-AGT_HD void agt_self_collision(const AgtModel& m, AgtEnvScratch& s) {
-  const float* sph = m.f + AGT_HDR + m.nb * AGT_BODY + m.nd * AGT_DOF + m.ncp * AGT_PT;
-  const float* pr = sph + m.nsph * AGT_SPH;
-  const int* sph_body = m.ib + 2 * m.nb + 1;
-  const int* pairs = sph_body + m.nsph;
-  for (int i = 0; i < m.nb; ++i)
-    for (int k = 0; k < 3; ++k) s.scn[i][k] = s.scf[i][k] = 0.0f;
-  for (int qq = 0; qq < m.npair; ++qq) {
-    int sa = pairs[2 * qq], sb = pairs[2 * qq + 1];
-    int ba = sph_body[sa], bb = sph_body[sb];
-    float ra_[3], rb_[3], xa[3], xb[3], va[3], vb[3], t[3];
-    mv33(s.W[ba], sph + sa * AGT_SPH, ra_);
-    mv33(s.W[bb], sph + sb * AGT_SPH, rb_);
-    cross3(s.om[ba], ra_, t);
-    for (int k = 0; k < 3; ++k) { xa[k] = s.o[ba][k] + ra_[k]; va[k] = s.vel[ba][k] + t[k]; }
-    cross3(s.om[bb], rb_, t);
-    for (int k = 0; k < 3; ++k) { xb[k] = s.o[bb][k] + rb_[k]; vb[k] = s.vel[bb][k] + t[k]; }
-    float d[3], dv[3], n[3];
-    for (int k = 0; k < 3; ++k) { d[k] = xa[k] - xb[k]; dv[k] = va[k] - vb[k]; }
-    float dist = sqrtf(dot3(d, d) + 1e-12f);
-    const float* pc = pr + qq * AGT_PAIR;
-    float pen = pc[0] - dist;
-    for (int k = 0; k < 3; ++k) n[k] = d[k] / dist;
-    float vn = dot3(dv, n);
-    float fmag = pen > 0.0f ? fmaxf(pc[1] * pen - pc[2] * vn, 0.0f) : 0.0f;
-    float f[3], ta[3], tb[3];
-    for (int k = 0; k < 3; ++k) f[k] = n[k] * fmag;
-    cross3(ra_, f, ta);
-    cross3(rb_, f, tb);
-    for (int k = 0; k < 3; ++k) {
-      s.scn[ba][k] += ta[k];
-      s.scf[ba][k] += f[k];
-      s.scn[bb][k] -= tb[k];
-      s.scf[bb][k] -= f[k];
+template <int K>
+AGT_HD void agt_st(AgtRow* rows, int i, const float* v) {
+  for (int k = 0; k < K; ++k) rows[k][i] = v[k];
+}
+
+// FK and body velocities of the state in s (root, q, qd) into W, M, o, om,
+// vel: the joint rotations and the root frame in one phase, then one phase
+// per level of the tree.
+template <class Team>
+AGT_HD void agt_fk(const Team& team, const AgtModel& m, AgtEnvScratch& s) {
+  team.each(m.nb, [&](int i) {
+    if (i == 0) {
+      const float* r = s.root;
+      float w = r[3], x = r[4], y = r[5], z = r[6];
+      float sc = 2.0f / (w * w + x * x + y * y + z * z);
+      float W0[9] = {1 - sc * (y * y + z * z), sc * (x * y - z * w), sc * (x * z + y * w),
+                     sc * (x * y + z * w), 1 - sc * (x * x + z * z), sc * (y * z - x * w),
+                     sc * (x * z - y * w), sc * (y * z + x * w), 1 - sc * (x * x + y * y)};
+      agt_st<9>(s.W, 0, W0);
+      for (int k = 0; k < 3; ++k) {
+        s.o[k][0] = r[k];
+        s.om[k][0] = r[10 + k];
+        s.vel[k][0] = r[7 + k];
+      }
+    } else {
+      float c = cosf(s.q[i - 1]), sn = sinf(s.q[i - 1]);
+      for (int k = 0; k < 9; ++k) s.M[k][i] = m.body(k, i) + c * m.body(9 + k, i) + sn * m.body(18 + k, i);
     }
+  });
+  for (int lev = 1; lev <= m.levels(); ++lev)
+    team.each(m.nb, [&](int i) {
+      if (m.depth(i) != lev) return;
+      const int p = m.parent(i);
+      float Wp[9], Mi[9], Wi[9], omp[3], rb[3], ax[3], rw[3], axw[3], t[3];
+      agt_ld<9>(s.W, p, Wp);
+      agt_ld<9>(s.M, i, Mi);
+      mm33(Wp, Mi, Wi);
+      agt_st<9>(s.W, i, Wi);
+      for (int k = 0; k < 3; ++k) {
+        rb[k] = m.body(27 + k, i);
+        ax[k] = m.body(30 + k, i);
+      }
+      mv33(Wp, rb, rw);
+      mv33(Wi, ax, axw);
+      agt_ld<3>(s.om, p, omp);
+      cross3(omp, rw, t);
+      const float qd = s.qd[i - 1];
+      for (int k = 0; k < 3; ++k) {
+        s.o[k][i] = s.o[k][p] + rw[k];
+        s.om[k][i] = omp[k] + axw[k] * qd;
+        s.vel[k][i] = s.vel[k][p] + t[k];
+      }
+    });
+}
+
+// Held wrenches into scn/scf: the sphere-pair penalty forces of the current
+// FK frames, then the narrowphase rows (`rows`: 6 per touched body,
+// env-minor, env offset applied; torque rows 0-2, force rows 3-5).  Pairs go
+// AGT_PAIR_CHUNK at a time: a lane per pair writes its force and the two
+// torques to the pair buffer, then each body's lane adds the pairs that
+// touch it in pair order.
+template <class Team>
+AGT_HD void agt_held_wrenches(const Team& team, const AgtModel& m, AgtEnvScratch& s,
+                              const float* rows, int n) {
+  team.each(m.nb, [&](int i) {
+    for (int k = 0; k < 3; ++k) s.scn[k][i] = s.scf[k][i] = 0.0f;
+  });
+  AgtRow* buf = s.ABD;  // pair c0 + t: f 0-2, torque on a 3-5, on b 6-8, bodies 9-10
+  for (int c0 = 0; c0 < m.npair; c0 += AGT_PAIR_CHUNK) {
+    const int cnt = m.npair - c0 < AGT_PAIR_CHUNK ? m.npair - c0 : AGT_PAIR_CHUNK;
+    team.each(cnt, [&](int t) {
+      const int qq = c0 + t;
+      const int sa = m.pair_sphere(qq, 0), sb = m.pair_sphere(qq, 1);
+      const int ba = m.sph_body(sa), bb = m.sph_body(sb);
+      float Wa[9], Wb[9], pa[3], pb[3], oma[3], omb[3];
+      agt_ld<9>(s.W, ba, Wa);
+      agt_ld<9>(s.W, bb, Wb);
+      agt_ld<3>(s.om, ba, oma);
+      agt_ld<3>(s.om, bb, omb);
+      for (int k = 0; k < 3; ++k) {
+        pa[k] = m.sphere(k, sa);
+        pb[k] = m.sphere(k, sb);
+      }
+      float ra_[3], rb_[3], xa[3], xb[3], va[3], vb[3], t3[3];
+      mv33(Wa, pa, ra_);
+      mv33(Wb, pb, rb_);
+      cross3(oma, ra_, t3);
+      for (int k = 0; k < 3; ++k) { xa[k] = s.o[k][ba] + ra_[k]; va[k] = s.vel[k][ba] + t3[k]; }
+      cross3(omb, rb_, t3);
+      for (int k = 0; k < 3; ++k) { xb[k] = s.o[k][bb] + rb_[k]; vb[k] = s.vel[k][bb] + t3[k]; }
+      float d[3], dv[3], nrm[3];
+      for (int k = 0; k < 3; ++k) { d[k] = xa[k] - xb[k]; dv[k] = va[k] - vb[k]; }
+      float dist = sqrtf(dot3(d, d) + 1e-12f);
+      float pen = m.pair(0, qq) - dist;
+      for (int k = 0; k < 3; ++k) nrm[k] = d[k] / dist;
+      float vn = dot3(dv, nrm);
+      float fmag = pen > 0.0f ? fmaxf(m.pair(1, qq) * pen - m.pair(2, qq) * vn, 0.0f) : 0.0f;
+      float f[3], ta[3], tb[3];
+      for (int k = 0; k < 3; ++k) f[k] = nrm[k] * fmag;
+      cross3(ra_, f, ta);
+      cross3(rb_, f, tb);
+      for (int k = 0; k < 3; ++k) {
+        buf[k][t] = f[k];
+        buf[3 + k][t] = ta[k];
+        buf[6 + k][t] = tb[k];
+      }
+      buf[9][t] = (float)ba;
+      buf[10][t] = (float)bb;
+    });
+    team.each(m.nb, [&](int i) {
+      for (int t = 0; t < cnt; ++t) {
+        if ((int)buf[9][t] == i)
+          for (int k = 0; k < 3; ++k) { s.scn[k][i] += buf[3 + k][t]; s.scf[k][i] += buf[k][t]; }
+        if ((int)buf[10][t] == i)
+          for (int k = 0; k < 3; ++k) { s.scn[k][i] -= buf[6 + k][t]; s.scf[k][i] -= buf[k][t]; }
+      }
+    });
   }
+  team.each(m.n_np, [&](int j) {
+    const int b = m.np_body(j);
+    const float* r = rows + 6 * j * n;
+    for (int k = 0; k < 3; ++k) {
+      s.scn[k][b] += r[k * n];
+      s.scf[k][b] += r[(3 + k) * n];
+    }
+  });
 }
 
 // Solve [[A, B], [B^T, D]] x = rhs by an unrolled Cholesky (pivot >= 1e-9).
@@ -270,36 +416,52 @@ AGT_HD void agt_solve6(const float* A, const float* B, const float* D, const flo
   }
 }
 
+// Body p's articulated inertia abd[27] (A, B, D) and bias force pn, pf
+// with its children's contributions of ABA pass 2 (left in their ABD, pn
+// and pf slots) added in decreasing child index.
+AGT_HD void agt_articulated(const AgtModel& m, const AgtEnvScratch& s, int p, float* abd,
+                            float* pn, float* pf) {
+  agt_ld<27>(s.ABD, p, abd);
+  agt_ld<3>(s.pn, p, pn);
+  agt_ld<3>(s.pf, p, pf);
+  for (unsigned kids = m.children(p); kids; ) {
+    const int c = agt_msb(kids);
+    kids &= ~(1u << c);
+    for (int k = 0; k < 27; ++k) abd[k] += s.ABD[k][c];
+    for (int k = 0; k < 3; ++k) {
+      pn[k] += s.pn[k][c];
+      pf[k] += s.pf[k][c];
+    }
+  }
+}
+
 // One substep; writes the per-body contact force to `contact` when non-null.
-template <bool kPerEnv>
-AGT_HD void agt_substep(const AgtModel& m, const AgtEnvParams<kPerEnv>& P, AgtEnvScratch& s,
-                        float* rp, float* rq, float* rv, float* ra, float* contact, int n) {
-  const float* F = m.f;
-  const float dt = F[0], max_torque = F[1], mu = P.mu, gravity = F[5];
-  const float* dofc = F + AGT_HDR + m.nb * AGT_BODY;
-  const float* ptc = dofc + m.nd * AGT_DOF;
-  const int* parent = m.ib;
-  const int* cp_start = m.ib + m.nb;
-  const int nb = m.nb, nd = m.nd;
+template <bool kPerEnv, class Team>
+AGT_HD void agt_substep(const Team& team, const AgtModel& m, const AgtEnvParams<kPerEnv>& P,
+                        AgtEnvScratch& s, float* contact, int n) {
+  const float dt = m.hdr(0), max_torque = m.hdr(1), mu = P.mu, gravity = m.hdr(5);
 
-  agt_fk(m, s, rp, rq, rv, ra);
+  agt_fk(team, m, s);
 
-  // ------------------------- contacts + ABA pass 1 (independent per body)
-  for (int i = 0; i < nb; ++i) {
-    const float* bc = F + AGT_HDR + i * AGT_BODY;
-    const float* W = s.W[i];
+  // ------------- contacts, ABA pass 1 and the joint torque (one body each)
+  team.each(m.nb, [&](int i) {
+    float W[9], om[3], vel[3];
+    agt_ld<9>(s.W, i, W);
+    agt_ld<3>(s.om, i, om);
+    agt_ld<3>(s.vel, i, vel);
+    const float oz = s.o[2][i];
     float fw[3] = {0.0f, 0.0f, 0.0f}, nw[3] = {0.0f, 0.0f, 0.0f}, csum = 0.0f;
-    for (int pt = cp_start[i]; pt < cp_start[i + 1]; ++pt) {
-      const float* pc = ptc + pt * AGT_PT;
+    for (int pt = m.cp_start(i); pt < m.cp_start(i + 1); ++pt) {
+      const float pc[3] = {m.point(0, pt), m.point(1, pt), m.point(2, pt)};
       float r[3], t[3], v[3];
       mv33(W, pc, r);
-      cross3(s.om[i], r, t);
-      for (int k = 0; k < 3; ++k) v[k] = s.vel[i][k] + t[k];
-      float phi = (s.o[i][2] + r[2]) - pc[3];
+      cross3(om, r, t);
+      for (int k = 0; k < 3; ++k) v[k] = vel[k] + t[k];
+      float phi = (oz + r[2]) - m.point(3, pt);
       float pen = fmaxf(-phi, 0.0f);
-      float fn = phi < 0.0f ? fmaxf(pc[4] * pen - pc[5] * v[2], 0.0f) : 0.0f;
+      float fn = phi < 0.0f ? fmaxf(m.point(4, pt) * pen - m.point(5, pt) * v[2], 0.0f) : 0.0f;
       float speed = sqrtf(v[0] * v[0] + v[1] * v[1] + 1e-10f);
-      float ftm = fminf(mu * fn, pc[6] * speed / dt);
+      float ftm = fminf(mu * fn, m.point(6, pt) * speed / dt);
       float scale = -ftm / speed;
       float f[3] = {scale * v[0], scale * v[1], fn}, nn[3];
       cross3(r, f, nn);
@@ -308,28 +470,31 @@ AGT_HD void agt_substep(const AgtModel& m, const AgtEnvParams<kPerEnv>& P, AgtEn
     }
     if (contact) contact[i * n] = P.scale(csum);
     for (int k = 0; k < 3; ++k) {
-      nw[k] = P.scale(nw[k] + s.scn[i][k]);
-      fw[k] = P.scale(fw[k] + s.scf[i][k]);
+      nw[k] = P.scale(nw[k] + s.scn[k][i]);
+      fw[k] = P.scale(fw[k] + s.scf[k][i]);
     }
 
-    float wb[3], vb[3];
-    mtv33(W, s.om[i], wb);
-    mtv33(W, s.vel[i], vb);
+    float wb[3], vb[3], cn[3] = {0.0f, 0.0f, 0.0f}, cf[3] = {0.0f, 0.0f, 0.0f};
+    mtv33(W, om, wb);
+    mtv33(W, vel, vb);
     if (i > 0) {
       float wJ[3];
-      for (int k = 0; k < 3; ++k) wJ[k] = bc[30 + k] * s.qd[i - 1];
-      cross3(wb, wJ, s.cn[i]);
-      cross3(vb, wJ, s.cf[i]);
-    } else {
-      for (int k = 0; k < 3; ++k) s.cn[i][k] = s.cf[i][k] = 0.0f;
+      for (int k = 0; k < 3; ++k) wJ[k] = m.body(30 + k, i) * s.qd[i - 1];
+      cross3(wb, wJ, cn);
+      cross3(vb, wJ, cf);
     }
-    const float* IA = bc + 33;
-    const float* IB = bc + 42;
-    const float mass = bc[51];
+    agt_st<3>(s.cn, i, cn);
+    agt_st<3>(s.cf, i, cf);
+    float IA[9], IB[9];
     for (int k = 0; k < 9; ++k) {
-      s.A[i][k] = P.scale(IA[k]);
-      s.B[i][k] = P.scale(IB[k]);
-      s.D[i][k] = (k % 4 == 0) ? P.scale(mass) : 0.0f;
+      IA[k] = m.body(33 + k, i);
+      IB[k] = m.body(42 + k, i);
+    }
+    const float mass = m.body(51, i);
+    for (int k = 0; k < 9; ++k) {
+      s.ABD[k][i] = P.scale(IA[k]);
+      s.ABD[9 + k][i] = P.scale(IB[k]);
+      s.ABD[18 + k][i] = (k % 4 == 0) ? P.scale(mass) : 0.0f;
     }
     float ivn[3], ivf[3], t1[3], t2[3], en[3], ef[3];
     mv33(IA, wb, t1);
@@ -345,181 +510,187 @@ AGT_HD void agt_substep(const AgtModel& m, const AgtEnvParams<kPerEnv>& P, AgtEn
     for (int k = 0; k < 3; ++k) bf[k] = P.scale(bf[k]);
     mtv33(W, nw, en);
     mtv33(W, fw, ef);
-    for (int k = 0; k < 3; ++k) { s.pn[i][k] = bn[k] - en[k]; s.pf[i][k] = bf[k] - ef[k]; }
-  }
+    for (int k = 0; k < 3; ++k) { s.pn[k][i] = bn[k] - en[k]; s.pf[k][i] = bf[k] - ef[k]; }
 
-  // -------------------------------------------------------- joint torques
-  for (int j = 0; j < nd; ++j) {
-    const float* dc = dofc + j * AGT_DOF;
-    float q = s.q[j], qd = s.qd[j];
-    float tpd = clampf(P.kp_of(j) * (s.tgt[j] - q) - P.kv_of(j) * qd, -max_torque, max_torque);
-    s.tau[j] = tpd - dc[1] * qd - dc[2] * tanhf(qd / 0.05f)
-               + 400.0f * fmaxf(dc[3] - q, 0.0f) - 400.0f * fmaxf(q - dc[4], 0.0f);
-  }
-
-  // ----------------------------------------------------------- ABA pass 2
-  for (int i = nb - 1; i > 0; --i) {
-    const float* bc = F + AGT_HDR + i * AGT_BODY;
-    const float* dc = dofc + (i - 1) * AGT_DOF;
-    const float* ax = bc + 30;
-    const float* r = bc + 27;
-    const float* Mi = s.M[i];
-    int p = parent[i];
-    float* Ut = s.Ut[i];
-    float* Ub = s.Ub[i];
-    mv33(s.A[i], ax, Ut);
-    mtv33(s.B[i], ax, Ub);
-    float d = dot3(Ut, ax) + dc[0] + dt * (dc[1] + P.kv_of(i - 1));
-    float dinv = 1.0f / d;
-    float u = s.tau[i - 1] - dot3(ax, s.pn[i]);
-    s.dinv[i] = dinv;
-    s.u[i] = u;
-
-    float Ap[9], Bp[9], Dp[9];
-    for (int a = 0; a < 3; ++a)
-      for (int b = 0; b < 3; ++b) {
-        Ap[a * 3 + b] = s.A[i][a * 3 + b] - Ut[a] * Ut[b] * dinv;
-        Bp[a * 3 + b] = s.B[i][a * 3 + b] - Ut[a] * Ub[b] * dinv;
-        Dp[a * 3 + b] = s.D[i][a * 3 + b] - Ub[a] * Ub[b] * dinv;
-      }
-    float ud = u * dinv;
-    float t1[3], t2[3], pan[3], paf[3];
-    mv33(Ap, s.cn[i], t1);
-    mv33(Bp, s.cf[i], t2);
-    for (int k = 0; k < 3; ++k) pan[k] = s.pn[i][k] + t1[k] + t2[k] + Ut[k] * ud;
-    mtv33(Bp, s.cn[i], t1);
-    mv33(Dp, s.cf[i], t2);
-    for (int k = 0; k < 3; ++k) paf[k] = s.pf[i][k] + t1[k] + t2[k] + Ub[k] * ud;
-
-    // to parent coords: n_p = M pan + r x (M paf); f_p = M paf
-    float mpan[3], mpaf[3], rxm[3];
-    mv33(Mi, pan, mpan);
-    mv33(Mi, paf, mpaf);
-    cross3(r, mpaf, rxm);
-    for (int k = 0; k < 3; ++k) {
-      s.pn[p][k] += mpan[k] + rxm[k];
-      s.pf[p][k] += mpaf[k];
+    if (i > 0) {  // joint torque of dof j, the joint of body i
+      const int j = i - 1;
+      float q = s.q[j], qd = s.qd[j];
+      float tpd = clampf(P.kp_of(j) * (s.tgt[j] - q) - P.kv_of(j) * qd, -max_torque, max_torque);
+      s.tau[j] = tpd - m.dof(1, j) * qd - m.dof(2, j) * tanhf(qd / 0.05f)
+                 + 400.0f * fmaxf(m.dof(3, j) - q, 0.0f) - 400.0f * fmaxf(q - m.dof(4, j), 0.0f);
     }
+  });
 
-    // inertia: sandwich with X = [[E,0],[F,E]], E = Mi^T, F = -E r~
-    float tmp[9], Ah[9], Bh[9], Dh[9];
-    mm33(Mi, Ap, tmp);
-    mm33_bt(tmp, Mi, Ah);
-    mm33(Mi, Bp, tmp);
-    mm33_bt(tmp, Mi, Bh);
-    mm33(Mi, Dp, tmp);
-    mm33_bt(tmp, Mi, Dh);
-    const float rx[9] = {0.0f, -r[2], r[1], r[2], 0.0f, -r[0], -r[1], r[0], 0.0f};
-    float Bh_rx[9], rx_Dh[9], rx_Dh_rx[9];
-    mm33(Bh, rx, Bh_rx);
-    mm33(rx, Dh, rx_Dh);
-    mm33(rx_Dh, rx, rx_Dh_rx);
-    for (int a = 0; a < 3; ++a)
-      for (int b = 0; b < 3; ++b) {
-        int k = a * 3 + b;
-        s.A[p][k] += ((Ah[k] - Bh_rx[k]) - Bh_rx[b * 3 + a]) - rx_Dh_rx[k];
-        s.B[p][k] += Bh[k] + rx_Dh[k];
-        s.D[p][k] += Dh[k];
+  // ------------------------------------ ABA pass 2, deepest level first
+  for (int lev = m.levels(); lev >= 1; --lev)
+    team.each(m.nb, [&](int i) {
+      if (m.depth(i) != lev) return;
+      const int j = i - 1;
+      float abd[27], Mi[9], pn[3], pf[3], cn[3], cf[3], ax[3], r[3];
+      agt_articulated(m, s, i, abd, pn, pf);
+      const float *A = abd, *B = abd + 9, *D = abd + 18;
+      agt_ld<9>(s.M, i, Mi);
+      agt_ld<3>(s.cn, i, cn);
+      agt_ld<3>(s.cf, i, cf);
+      for (int k = 0; k < 3; ++k) {
+        r[k] = m.body(27 + k, i);
+        ax[k] = m.body(30 + k, i);
       }
-  }
+      float Ut[3], Ub[3];
+      mv33(A, ax, Ut);
+      mtv33(B, ax, Ub);
+      float d = dot3(Ut, ax) + m.dof(0, j) + dt * (m.dof(1, j) + P.kv_of(j));
+      float dinv = 1.0f / d;
+      float u = s.tau[j] - dot3(ax, pn);
+      agt_st<3>(s.Ut, i, Ut);
+      agt_st<3>(s.Ub, i, Ub);
+      s.dinv[i] = dinv;
+      s.u[i] = u;
 
-  // ----------------------------------------------------------- ABA pass 3
-  // spatial accelerations overwrite the bias rows: pn/pf[i] hold a_n/a_f[i]
-  float rhs[6], a0[6];
-  for (int k = 0; k < 3; ++k) { rhs[k] = -s.pn[0][k]; rhs[3 + k] = -s.pf[0][k]; }
-  agt_solve6(s.A[0], s.B[0], s.D[0], rhs, a0);
-  for (int k = 0; k < 3; ++k) { s.pn[0][k] = a0[k]; s.pf[0][k] = a0[3 + k]; }
+      float Ap[9], Bp[9], Dp[9];
+      for (int a = 0; a < 3; ++a)
+        for (int b = 0; b < 3; ++b) {
+          Ap[a * 3 + b] = A[a * 3 + b] - Ut[a] * Ut[b] * dinv;
+          Bp[a * 3 + b] = B[a * 3 + b] - Ut[a] * Ub[b] * dinv;
+          Dp[a * 3 + b] = D[a * 3 + b] - Ub[a] * Ub[b] * dinv;
+        }
+      float ud = u * dinv;
+      float t1[3], t2[3], pan[3], paf[3];
+      mv33(Ap, cn, t1);
+      mv33(Bp, cf, t2);
+      for (int k = 0; k < 3; ++k) pan[k] = pn[k] + t1[k] + t2[k] + Ut[k] * ud;
+      mtv33(Bp, cn, t1);
+      mv33(Dp, cf, t2);
+      for (int k = 0; k < 3; ++k) paf[k] = pf[k] + t1[k] + t2[k] + Ub[k] * ud;
 
+      // to parent coords: n_p = M pan + r x (M paf); f_p = M paf
+      float mpan[3], mpaf[3], rxm[3];
+      mv33(Mi, pan, mpan);
+      mv33(Mi, paf, mpaf);
+      cross3(r, mpaf, rxm);
+      for (int k = 0; k < 3; ++k) {
+        s.pn[k][i] = mpan[k] + rxm[k];
+        s.pf[k][i] = mpaf[k];
+      }
+
+      // inertia: sandwich with X = [[E,0],[F,E]], E = Mi^T, F = -E r~
+      float tmp[9], Ah[9], Bh[9], Dh[9];
+      mm33(Mi, Ap, tmp);
+      mm33_bt(tmp, Mi, Ah);
+      mm33(Mi, Bp, tmp);
+      mm33_bt(tmp, Mi, Bh);
+      mm33(Mi, Dp, tmp);
+      mm33_bt(tmp, Mi, Dh);
+      const float rx[9] = {0.0f, -r[2], r[1], r[2], 0.0f, -r[0], -r[1], r[0], 0.0f};
+      float Bh_rx[9], rx_Dh[9], rx_Dh_rx[9];
+      mm33(Bh, rx, Bh_rx);
+      mm33(rx, Dh, rx_Dh);
+      mm33(rx_Dh, rx, rx_Dh_rx);
+      for (int a = 0; a < 3; ++a)
+        for (int b = 0; b < 3; ++b) {
+          int k = a * 3 + b;
+          s.ABD[k][i] = ((Ah[k] - Bh_rx[k]) - Bh_rx[b * 3 + a]) - rx_Dh_rx[k];
+          s.ABD[9 + k][i] = Bh[k] + rx_Dh[k];
+          s.ABD[18 + k][i] = Dh[k];
+        }
+    });
+
+  // ------------------- root: 6x6 solve, then its integration (lane 0)
+  // the spatial accelerations overwrite the bias rows: pn/pf hold a_n/a_f
   const float vmax = 100.0f;
-  for (int i = 1; i < nb; ++i) {
-    const float* bc = F + AGT_HDR + i * AGT_BODY;
-    const float* dc = dofc + (i - 1) * AGT_DOF;
-    const float* r = bc + 27;
-    const float* ax = bc + 30;
-    int p = parent[i];
-    float wl[3], vl[3], t[3], dvv[3];
-    mtv33(s.M[i], s.pn[p], wl);
-    for (int k = 0; k < 3; ++k) wl[k] += s.cn[i][k];
-    cross3(r, s.pn[p], t);
-    for (int k = 0; k < 3; ++k) dvv[k] = s.pf[p][k] - t[k];
-    mtv33(s.M[i], dvv, vl);
-    for (int k = 0; k < 3; ++k) vl[k] += s.cf[i][k];
-    float qdd = (s.u[i] - (dot3(s.Ut[i], wl) + dot3(s.Ub[i], vl))) * s.dinv[i];
-    for (int k = 0; k < 3; ++k) { s.pn[i][k] = wl[k] + ax[k] * qdd; s.pf[i][k] = vl[k]; }
+  team.each(1, [&](int) {
+    float abd[27], pn[3], pf[3], rhs[6], a0[6];
+    agt_articulated(m, s, 0, abd, pn, pf);
+    for (int k = 0; k < 3; ++k) { rhs[k] = -pn[k]; rhs[3 + k] = -pf[k]; }
+    agt_solve6(abd, abd + 9, abd + 18, rhs, a0);
+    for (int k = 0; k < 3; ++k) { s.pn[k][0] = a0[k]; s.pf[k][0] = a0[3 + k]; }
 
-    // joint integration (uses only this dof's own state)
-    int j = i - 1;
-    float lo = dc[3], hi = dc[4];
-    float nqd = clampf(s.qd[j] + dt * qdd, -vmax, vmax);
-    float nq = s.q[j] + dt * nqd;
-    if (nq > hi && nqd > 0.0f) nqd = 0.0f;
-    if (nq < lo && nqd < 0.0f) nqd = 0.0f;
-    s.q[j] = clampf(nq, lo, hi);
-    s.qd[j] = nqd;
-  }
-
-  // ------------------------------------------------------ root integration
-  float wdot[3], alin[3], t[3];
-  mv33(s.W[0], s.pn[0], wdot);
-  mv33(s.W[0], s.pf[0], alin);
-  cross3(ra, rv, t);
-  for (int k = 0; k < 3; ++k) alin[k] += t[k];
-  alin[2] = alin[2] - gravity;
-  for (int k = 0; k < 3; ++k) {
-    ra[k] = clampf(ra[k] + dt * wdot[k], -vmax, vmax);
-    rv[k] = clampf(rv[k] + dt * alin[k], -vmax, vmax);
-    rp[k] = rp[k] + dt * rv[k];
-  }
-
-  // q' = normalize(exp(dt * w) * q), positive hemisphere
-  float ex = dt * ra[0], ey = dt * ra[1], ez = dt * ra[2];
-  float angle = sqrtf(ex * ex + ey * ey + ez * ez);
-  float inv = 1.0f / fmaxf(angle, 1e-8f);
-  bool small = angle <= 1e-5f;
-  float half = 0.5f * (small ? 0.0f : angle);
-  float sh = sinf(half) * inv;
-  float dw = cosf(half);
-  float dx = small ? 0.0f : ex * sh, dy = small ? 0.0f : ey * sh, dz = small ? 0.0f : ez * sh;
-  float w2 = rq[0], x2 = rq[1], y2 = rq[2], z2 = rq[3];
-  float w = dw * w2 - dx * x2 - dy * y2 - dz * z2;
-  float x = dw * x2 + dx * w2 + dy * z2 - dz * y2;
-  float y = dw * y2 - dx * z2 + dy * w2 + dz * x2;
-  float z = dw * z2 + dx * y2 - dy * x2 + dz * w2;
-  float sign = w < 0.0f ? -1.0f : 1.0f;
-  float nrm = 1.0f / sqrtf(fmaxf(w * w + x * x + y * y + z * z, 1e-12f));
-  rq[0] = w * sign * nrm;
-  rq[1] = x * sign * nrm;
-  rq[2] = y * sign * nrm;
-  rq[3] = z * sign * nrm;
-}
-
-// Add the narrowphase rows (`rows`: 6 per touched body, env-minor, env
-// offset applied) into the held wrenches: torque rows 0-2, force rows 3-5.
-AGT_HD void agt_add_np_rows(const AgtModel& m, AgtEnvScratch& s, const float* rows, int n) {
-  const int* np_body = m.ib + 2 * m.nb + 1 + m.nsph + 2 * m.npair;
-  for (int j = 0; j < m.n_np; ++j) {
-    int b = np_body[j];
-    const float* r = rows + 6 * j * n;
+    float* rp = s.root;
+    float* rq = s.root + 3;
+    float* rv = s.root + 7;
+    float* ra = s.root + 10;
+    float W0[9], wdot[3], alin[3], t[3];
+    agt_ld<9>(s.W, 0, W0);
+    mv33(W0, a0, wdot);
+    mv33(W0, a0 + 3, alin);
+    cross3(ra, rv, t);
+    for (int k = 0; k < 3; ++k) alin[k] += t[k];
+    alin[2] = alin[2] - gravity;
     for (int k = 0; k < 3; ++k) {
-      s.scn[b][k] += r[k * n];
-      s.scf[b][k] += r[(3 + k) * n];
+      ra[k] = clampf(ra[k] + dt * wdot[k], -vmax, vmax);
+      rv[k] = clampf(rv[k] + dt * alin[k], -vmax, vmax);
+      rp[k] = rp[k] + dt * rv[k];
     }
-  }
+
+    // q' = normalize(exp(dt * w) * q), positive hemisphere
+    float ex = dt * ra[0], ey = dt * ra[1], ez = dt * ra[2];
+    float angle = sqrtf(ex * ex + ey * ey + ez * ez);
+    float inv = 1.0f / fmaxf(angle, 1e-8f);
+    bool small = angle <= 1e-5f;
+    float half = 0.5f * (small ? 0.0f : angle);
+    float sh = sinf(half) * inv;
+    float dw = cosf(half);
+    float dx = small ? 0.0f : ex * sh, dy = small ? 0.0f : ey * sh, dz = small ? 0.0f : ez * sh;
+    float w2 = rq[0], x2 = rq[1], y2 = rq[2], z2 = rq[3];
+    float w = dw * w2 - dx * x2 - dy * y2 - dz * z2;
+    float x = dw * x2 + dx * w2 + dy * z2 - dz * y2;
+    float y = dw * y2 - dx * z2 + dy * w2 + dz * x2;
+    float z = dw * z2 + dx * y2 - dy * x2 + dz * w2;
+    float sign = w < 0.0f ? -1.0f : 1.0f;
+    float nrm = 1.0f / sqrtf(fmaxf(w * w + x * x + y * y + z * z, 1e-12f));
+    rq[0] = w * sign * nrm;
+    rq[1] = x * sign * nrm;
+    rq[2] = y * sign * nrm;
+    rq[3] = z * sign * nrm;
+  });
+
+  // ------------- ABA pass 3 and joint integration, shallowest level first
+  for (int lev = 1; lev <= m.levels(); ++lev)
+    team.each(m.nb, [&](int i) {
+      if (m.depth(i) != lev) return;
+      const int p = m.parent(i), j = i - 1;
+      float Mi[9], an[3], af[3], r[3], ax[3], Ut[3], Ub[3];
+      agt_ld<9>(s.M, i, Mi);
+      agt_ld<3>(s.pn, p, an);
+      agt_ld<3>(s.pf, p, af);
+      agt_ld<3>(s.Ut, i, Ut);
+      agt_ld<3>(s.Ub, i, Ub);
+      for (int k = 0; k < 3; ++k) {
+        r[k] = m.body(27 + k, i);
+        ax[k] = m.body(30 + k, i);
+      }
+      float wl[3], vl[3], t[3], dvv[3];
+      mtv33(Mi, an, wl);
+      for (int k = 0; k < 3; ++k) wl[k] += s.cn[k][i];
+      cross3(r, an, t);
+      for (int k = 0; k < 3; ++k) dvv[k] = af[k] - t[k];
+      mtv33(Mi, dvv, vl);
+      for (int k = 0; k < 3; ++k) vl[k] += s.cf[k][i];
+      float qdd = (s.u[i] - (dot3(Ut, wl) + dot3(Ub, vl))) * s.dinv[i];
+      for (int k = 0; k < 3; ++k) { s.pn[k][i] = wl[k] + ax[k] * qdd; s.pf[k][i] = vl[k]; }
+
+      // joint integration (uses only this dof's own state)
+      float lo = m.dof(3, j), hi = m.dof(4, j);
+      float nqd = clampf(s.qd[j] + dt * qdd, -vmax, vmax);
+      float nq = s.q[j] + dt * nqd;
+      if (nq > hi && nqd > 0.0f) nqd = 0.0f;
+      if (nq < lo && nqd < 0.0f) nqd = 0.0f;
+      s.q[j] = clampf(nq, lo, hi);
+      s.qd[j] = nqd;
+    });
 }
 
-// One control step for env e.  `in` rows (env-minor, N = n):
+// One control step for env e, by `team`.  `in` rows (env-minor, N = n):
 //   root_pos 3, root_quat 4, root_vel 3, root_ang_vel 3, q nd, qd nd,
 //   prev_target nd, command nd; the per-env variant then kp nd, kv nd,
 //   mu 1, ms 1; then 6 narrowphase rows for each of the n_np bodies
 // `out` rows: root_pos 3, root_quat 4, root_vel 3, root_ang_vel 3, q nd,
 //   qd nd, applied target nd, contact nb
-template <bool kPerEnv = false>
-AGT_HD void agt_control_step_env(const AgtModel& m, AgtEnvScratch& s, const float* in,
-                                 float* out, int n, int e) {
-  const float* F = m.f;
+template <bool kPerEnv, class Team>
+AGT_HD void agt_control_step_env(const Team& team, const AgtModel& m, AgtEnvScratch& s,
+                                 const float* in, float* out, int n, int e) {
   const int nd = m.nd;
-  const float margin = F[2], max_delta = F[3];
-  const float* dofc = F + AGT_HDR + m.nb * AGT_BODY;
+  const float margin = m.hdr(2), max_delta = m.hdr(3);
   in += e;
   out += e;
   AgtEnvParams<kPerEnv> P;
@@ -531,56 +702,41 @@ AGT_HD void agt_control_step_env(const AgtModel& m, AgtEnvScratch& s, const floa
     P.mu = pe[2 * nd * n];
     P.ms = pe[(2 * nd + 1) * n];
   } else {
-    P.kp = dofc + 5;
-    P.kv = dofc + 6;
-    P.mu = F[4];
+    P.kp = m.dofs() + 5 * nd;
+    P.kv = m.dofs() + 6 * nd;
+    P.mu = m.hdr(4);
     P.ms = 1.0f;
   }
-  float rp[3], rq[4], rv[3], ra[3];
-  for (int k = 0; k < 3; ++k) {
-    rp[k] = in[k * n];
-    rv[k] = in[(7 + k) * n];
-    ra[k] = in[(10 + k) * n];
-  }
-  for (int k = 0; k < 4; ++k) rq[k] = in[(3 + k) * n];
-  const float* q_in = in + 13 * n;
-  for (int j = 0; j < nd; ++j) {
-    const float* dc = dofc + j * AGT_DOF;
-    s.q[j] = q_in[j * n];
-    s.qd[j] = q_in[(nd + j) * n];
-    float prev = q_in[(2 * nd + j) * n];
-    float cmd = q_in[(3 * nd + j) * n];
-    // PD target clamp + slew limit
-    float t = clampf(cmd, dc[3] + margin, dc[4] - margin);
-    s.tgt[j] = prev + clampf(t - prev, -max_delta, max_delta);
-  }
+  // state in: root row t < 13, dof t < nd with its PD target (clamp + slew)
+  const int rows = nd > 13 ? nd : 13;
+  team.each(rows, [&](int t) {
+    if (t < 13) s.root[t] = in[t * n];
+    if (t < nd) {
+      const float* q_in = in + 13 * n;
+      s.q[t] = q_in[t * n];
+      s.qd[t] = q_in[(nd + t) * n];
+      float prev = q_in[(2 * nd + t) * n];
+      float cmd = q_in[(3 * nd + t) * n];
+      float c = clampf(cmd, m.dof(3, t) + margin, m.dof(4, t) - margin);
+      s.tgt[t] = prev + clampf(c - prev, -max_delta, max_delta);
+    }
+  });
 
-  if (m.npair > 0) {
-    agt_fk(m, s, rp, rq, rv, ra);
-    agt_self_collision(m, s);
-  } else {
-    for (int i = 0; i < m.nb; ++i)
-      for (int k = 0; k < 3; ++k) s.scn[i][k] = s.scf[i][k] = 0.0f;
-  }
-  if (m.n_np > 0) {
-    const int np_row = 13 + 4 * nd + (kPerEnv ? 2 * nd + 2 : 0);
-    agt_add_np_rows(m, s, in + np_row * n, n);
-  }
+  if (m.npair > 0) agt_fk(team, m, s);
+  const int np_row = 13 + 4 * nd + (kPerEnv ? 2 * nd + 2 : 0);
+  agt_held_wrenches(team, m, s, in + np_row * n, n);
 
   float* contact = out + (13 + 3 * nd) * n;
   for (int st = 0; st < m.substeps; ++st)
-    agt_substep(m, P, s, rp, rq, rv, ra, st == m.substeps - 1 ? contact : (float*)0, n);
+    agt_substep(team, m, P, s, st == m.substeps - 1 ? contact : (float*)0, n);
 
-  for (int k = 0; k < 3; ++k) {
-    out[k * n] = rp[k];
-    out[(7 + k) * n] = rv[k];
-    out[(10 + k) * n] = ra[k];
-  }
-  for (int k = 0; k < 4; ++k) out[(3 + k) * n] = rq[k];
-  float* q_out = out + 13 * n;
-  for (int j = 0; j < nd; ++j) {
-    q_out[j * n] = s.q[j];
-    q_out[(nd + j) * n] = s.qd[j];
-    q_out[(2 * nd + j) * n] = s.tgt[j];
-  }
+  team.each(rows, [&](int t) {
+    if (t < 13) out[t * n] = s.root[t];
+    if (t < nd) {
+      float* q_out = out + 13 * n;
+      q_out[t * n] = s.q[t];
+      q_out[(nd + t) * n] = s.qd[t];
+      q_out[(2 * nd + t) * n] = s.tgt[t];
+    }
+  });
 }

@@ -4,7 +4,8 @@ Counterpart of ``add_gym_tpu/physics/pallas_step.py``: :func:`cuda_step`
 has the contract of ``pallas_step`` / ``fused_step`` (state in, state and
 last-substep contact out, ``[N, ...]`` layouts).  For tensors on a CUDA
 device it launches ``agt_control_step_kernel`` (``csrc/control_step.cu``,
-per-env math in ``csrc/control_step.cuh``) and raises if the launch fails;
+one warp per env; the per-env step in ``csrc/control_step.cuh``) and
+raises if the launch fails;
 for CPU tensors it runs the plain version, ``fused_step.fused_step``.
 Parameters with per-env leaves (domain randomization: ``kp``/``kv``
 ``[N, nd]``, ``friction_mu`` ``[N]``, a mass scale) go to the kernel's
@@ -111,15 +112,50 @@ def _library():
             ]
         lib.agt_max_bodies.restype = ctypes.c_int
         lib.agt_max_bodies.argtypes = []
+        lib.agt_kernel_info.restype = ctypes.c_int
+        lib.agt_kernel_info.argtypes = [ctypes.c_int, ctypes.c_void_p]
         _lib = lib
     return _lib
+
+
+def kernel_info(per_env: bool = False) -> dict:
+    """The launch shape of the kernel's main or per-env variant on the
+    current CUDA device: envs (warps) a block, dynamic shared memory bytes
+    a block, blocks resident per SM, registers a thread."""
+    info = (ctypes.c_int * 4)()
+    rc = _library().agt_kernel_info(int(per_env), info)
+    if rc != 0:
+        raise RuntimeError(f"control step kernel attributes: CUDA error {rc}")
+    return dict(envs_per_block=info[0], shared_bytes=info[1], blocks_per_sm=info[2],
+                registers=info[3])
+
+
+def tree_tables(parent):
+    """(depth [nb], children [nb]) of a tree given by ``parent`` (parent[i] <
+    i, parent[0] = -1): each body's depth, and a bit mask of its children
+    (bit c set when parent[c] = i, as i32; at most 32 bodies)."""
+    parent = np.asarray(parent)
+    nb = len(parent)
+    if nb > 32:
+        raise ValueError(f"model has {nb} bodies; the child masks take at most 32")
+    depth = np.zeros(nb, np.int64)
+    children = np.zeros(nb, np.uint32)
+    for i in range(1, nb):
+        p = int(parent[i])
+        if not 0 <= p < i:
+            raise ValueError(f"body {i} has parent {p}: parents must come first")
+        depth[i] = depth[p] + 1
+        children[p] |= np.uint32(1 << i)
+    return depth, children.view(np.int32)
 
 
 def pack_model(fc: FusedModelConstants, params: EngineParams, per_env: bool | None = None):
     """Host buffers of the kernel's model constants.
 
     Returns (fbuf f32, ibuf i32, counts) with counts = (nb, nd, ncp, nsph,
-    npair, substeps, n_np); the layout is documented in control_step.cuh.  For
+    npair, substeps, n_np); the layout is documented in control_step.cuh
+    (f32 sections field-major; i32 parent, depth + the tree's depth, child
+    masks, contact-point CSR, spheres, pairs, narrowphase bodies).  For
     the per-env variant (``per_env``, by default ``is_per_env(params)``)
     the shared kp/kv/mu slots hold 0: it reads them from its input block.
     """
@@ -150,12 +186,15 @@ def pack_model(fc: FusedModelConstants, params: EngineParams, per_env: bool | No
     rsum = fc.sc_radius[pairs[:, 0]] + fc.sc_radius[pairs[:, 1]]
     pair = np.stack([rsum, k_sc[: len(pairs)], b_sc[: len(pairs)]], axis=1)
     assert body.shape[1] == BODY and dof.shape[1] == DOF and pt.shape[1] == PT
+    # field-major sections: a warp's lanes read one constant of 32 bodies
     fbuf = np.concatenate(
-        [hdr, body.ravel(), dof.ravel(), pt.ravel(), sph.ravel(), pair.ravel()]
+        [hdr, body.T.ravel(), dof.T.ravel(), pt.T.ravel(), sph.T.ravel(), pair.T.ravel()]
     ).astype(np.float32)
+    depth, children = tree_tables(fc.parent)
     cp_start = np.searchsorted(fc.cp_body, np.arange(nb + 1))
     ibuf = np.concatenate(
-        [fc.parent, cp_start, fc.sc_body, pairs.ravel(), fc.np_bodies]
+        [fc.parent, depth, [depth.max()], children, cp_start, fc.sc_body, pairs.ravel(),
+         fc.np_bodies]
     ).astype(np.int32)
     counts = (nb, nd, len(fc.cp_body), len(fc.sc_body), len(pairs), int(params.substeps),
               len(fc.np_bodies))

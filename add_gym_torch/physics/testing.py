@@ -11,6 +11,8 @@
   because the G1's own description files are data assets this repository
   does not ship; both packages load it by absolute path, so one file
   drives the JAX reference and the port at the G1's widths.
+* :func:`write_wide_fixture`: the G1-shaped robot with extra hinged
+  links at the wrists (32 bodies at 2 extra: the kernel's most).
 * :func:`write_motion_csv`: a synthetic ``.motion`` clip (36 columns:
   root pos, root quat xyzw at columns 3-6, 29 joint angles; 30 fps) made
   from a numpy seed.
@@ -224,6 +226,23 @@ def write_mini_mjcf(directory: str) -> str:
 def write_g1_fixture(directory: str) -> str:
     """Write the G1-shaped MJCF into ``directory`` and return its path."""
     return _write(os.path.join(directory, "g1_shaped_fixture.xml"), g1_fixture_mjcf())
+
+
+def write_wide_fixture(directory: str, extra: int) -> str:
+    """Write the G1-shaped MJCF with ``extra`` more hinged links, hung off
+    the wrists in turn (left, right, left, ...), and return its path: 32
+    bodies, the control-step kernel's most, at ``extra = 2``."""
+    text = g1_fixture_mjcf()
+    for k in range(extra):
+        side = ("left", "right")[k % 2]
+        head = f'<body name="{side}_wrist_yaw_link"'
+        close = text.index("</body>", text.index(head))
+        hand = (f'<body name="{side}_hand{k}_link" pos="0.1 0 0">'
+                f'<inertial pos="0.03 0 0" mass="0.2" diaginertia="{_fmt(_box_inertia(0.2, (0.03, 0.02, 0.01)))}"/>'
+                f'<joint name="{side}_hand{k}_joint" axis="{_Y}" range="-1 1" class="arm"/>'
+                f'<geom type="box" pos="0.03 0 0" size="0.03 0.02 0.01"/></body>\n')
+        text = text[:close] + hand + text[close:]
+    return _write(os.path.join(directory, f"g1_fixture_plus{extra}.xml"), text)
 
 
 # a crouched base pose inside every joint range (motion column order)

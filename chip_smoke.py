@@ -4,7 +4,9 @@
 
 Phases (any failure exits non-zero; nothing here catches its own error):
 
-1. Build the control-step kernel from ``add_gym_torch/csrc`` with nvcc.
+1. Build the control-step kernel from ``add_gym_torch/csrc`` with nvcc;
+   log ptxas's registers, stack and spills, and each variant's launch shape
+   (envs a block, dynamic shared memory a block, blocks resident per SM).
 2. Kernel vs plain version on the card: the mini biped (N=256) and the
    G1-shaped fixture (N=4096 and the ragged N=4000), 4 control steps from
    states with ground contact and non-zero velocities; each step runs the
@@ -33,9 +35,13 @@ Phases (any failure exits non-zero; nothing here catches its own error):
    at 64 envs through the kernel and through the plain step agrees.
 4. Times: CUDA events over 100 launches at 4096 envs on the G1-shaped
    fixture, for each variant and for the main variant with the
-   narrowphase rows, beside the plain version and the bound; and the time
-   of ``compute_np_ext`` per control step (the cost outside the kernel),
-   with its device op count from ``torch.profiler``.
+   narrowphase rows, beside the plain version and the bound, and two
+   launches on one input block bitwise equal for each; the main variant's
+   ms per launch at 1024, 2048, 4096 and 8192 envs beside the bound at
+   each N and the host's enqueue time per launch (below the kernel's, so
+   the events time the kernel); and the time of ``compute_np_ext`` per
+   control step (the cost outside the kernel), with its device op count
+   from ``torch.profiler``.
 5. Training, config ``train`` (main variant): ``train_iter`` at 4096 envs
    x 32 steps, 5 epochs x 8 minibatches of 16,384, with ``bench.py``'s
    protocol shortened to keep the smoke near two minutes: 1 warm-up
@@ -81,6 +87,13 @@ Phases (any failure exits non-zero; nothing here catches its own error):
    that the losses are finite; prints the rate as two ranks sharing one
    card (the collectives' cost on one card, no multi-GPU figure).
 12. The kernel line, the card's name and power limit, and the result line.
+
+``python3 chip_smoke.py --compare-kernel DIR`` runs no phase but this:
+``DIR`` holds another checkout of the repository (its own
+``add_gym_torch/physics/cuda_step.py`` packs its model buffers and builds
+its kernel into ``DIR/build``); the two kernels' main variants step the
+same 4096-env input in turns (other, this, this, other), and it prints
+each one's ms per launch and the largest difference of their outputs.
 
 Each path (3, 5, 6, 7, 11) is driven with the launch counts set to 0 just
 before it and read just after (phase 11 in each rank's own process).  Each log line starts with the seconds since the
@@ -138,6 +151,9 @@ NP_EXT_CALLS = 20         # phase 4: compute_np_ext calls timed
 NP_TIMED = 2              # phase 7: timed train iterations
 PARITY_ENVS = 256         # phase 8
 SHARD_ENVS = (2048, 1024)  # phase 9: per-rank shapes of 2 and 4 ranks at 4096 envs
+SWEEP_ENVS = (1024, 2048, 4096, 8192)  # phase 4: ms per launch of the main variant
+DESIGN = ("warp per env, lane per body; 4 envs a 128-thread block; per-env scratch in "
+          "shared memory; tree passes level by level")
 CLI_EVAL_LEN = 0.5        # phase 10: episode cap of the run (50 control steps)
 SUBPROCESS_TIMEOUT = 300
 TRAIN_WARMUP = 1          # bench.py's protocol, shortened: warm-up iterations,
@@ -187,6 +203,15 @@ def control_step_bytes(fbuf, ibuf, n: int, nb: int, nd: int, per_env: bool = Fal
     (13 + 3 nd + nb rows) and the model buffers, each once."""
     rows_in = 13 + 4 * nd + (2 * nd + 2 if per_env else 0) + 6 * n_np
     return 4 * n * (rows_in + 13 + 3 * nd + nb) + fbuf.nbytes + ibuf.nbytes
+
+
+def control_step_bound(fbuf, ibuf, counts, n: int, per_env: bool = False):
+    """(bound ms, bound by) of one launch over n envs at the H100's peaks."""
+    nb, nd, ncp, nsph, npair, substeps, n_np = counts
+    flops = control_step_flops(nb, nd, ncp, npair, substeps, per_env=per_env, n_np=n_np) * n
+    io_bytes = control_step_bytes(fbuf, ibuf, n, nb, nd, per_env=per_env, n_np=n_np)
+    bound_by = "operations" if flops / PEAK_F32 >= io_bytes / PEAK_BYTES else "bytes"
+    return max(flops / PEAK_F32, io_bytes / PEAK_BYTES) * 1e3, bound_by
 
 
 def sim_state(fields, device):
@@ -460,20 +485,22 @@ def phase_times(g1_path, dr: bool, geoms: bool = False):
     dt = params.ctrl_dt / params.substeps
     np_ext = compute_np_ext(fc, params, dt, state)
     inp = cs.pack_state(state, cmd, params, None, np_ext)
+    first, again = (cs.launch_control_step(fc, params, inp) for _ in range(2))
+    torch.cuda.synchronize()
+    if not torch.equal(first, again):
+        raise AssertionError("two launches on one input block differ")
     kernel_ms = _time_ms(lambda: cs.launch_control_step(fc, params, inp), TIMING_LAUNCHES)
     plain_ms = _time_ms(lambda: fused_step(fc, params, state, cmd), PLAIN_CALLS)
 
     fbuf, ibuf, counts = cs.pack_model(fc, params)
     nb, nd, ncp, nsph, npair, substeps, n_np = counts
-    flops = control_step_flops(nb, nd, ncp, npair, substeps, per_env=dr, n_np=n_np) * NUM_ENVS
-    io_bytes = control_step_bytes(fbuf, ibuf, NUM_ENVS, nb, nd, per_env=dr, n_np=n_np)
-    bound_ms = max(flops / PEAK_F32, io_bytes / PEAK_BYTES) * 1e3
-    bound_by = "operations" if flops / PEAK_F32 >= io_bytes / PEAK_BYTES else "bytes"
+    flops = control_step_flops(nb, nd, ncp, npair, substeps, per_env=dr, n_np=n_np)
+    bound_ms, bound_by = control_step_bound(fbuf, ibuf, counts, NUM_ENVS, dr)
     name = ("per-env" if dr else "main") + (" + narrowphase rows" if geoms else "")
     log(f"[phase 4] {name} variant at N={NUM_ENVS}: kernel "
-        f"{kernel_ms:.4f} ms/launch (CUDA events, {TIMING_LAUNCHES} launches), plain version "
-        f"{plain_ms:.4f} ms/call ({PLAIN_CALLS} calls); bound {bound_ms:.5f} ms by {bound_by} "
-        f"({flops / NUM_ENVS:.0f} flops/env, {io_bytes} bytes, n_np={n_np})")
+        f"{kernel_ms:.4f} ms/launch (CUDA events, {TIMING_LAUNCHES} launches; two launches "
+        f"bitwise equal), plain version {plain_ms:.4f} ms/call ({PLAIN_CALLS} calls); bound "
+        f"{bound_ms:.5f} ms by {bound_by} ({flops:.0f} flops/env, n_np={n_np})")
     if not geoms:
         return kernel_ms, plain_ms, bound_ms, bound_by
 
@@ -494,6 +521,30 @@ def phase_times(g1_path, dr: bool, geoms: bool = False):
         f"(torch.profiler, one call); two calls bitwise equal")
     return kernel_ms, plain_ms, bound_ms, bound_by, dict(ms=ext_ms, device_ops=ops,
                                                           device_ms=busy_ms)
+
+
+def phase_sweep(g1_path):
+    """The main variant's ms per launch at each N of SWEEP_ENVS beside the
+    bound, and the host's enqueue time per launch (perf_counter over the
+    launches, before the synchronise)."""
+    model, fc, params = model_setup(g1_path, "g1")
+    fbuf, ibuf, counts = cs.pack_model(fc, params)
+    sweep = {}
+    for n in SWEEP_ENVS:
+        fields, cmd = fx.random_sim_state(model, n, seed=n + 5, height=fx.G1_PELVIS_HEIGHT)
+        inp = cs.pack_state(sim_state(fields, DEVICE), torch.as_tensor(cmd, device=DEVICE))
+        kernel_ms = _time_ms(lambda: cs.launch_control_step(fc, params, inp), TIMING_LAUNCHES)
+        t0 = time.perf_counter()
+        for _ in range(TIMING_LAUNCHES):
+            cs.launch_control_step(fc, params, inp)
+        host_ms = (time.perf_counter() - t0) * 1e3 / TIMING_LAUNCHES
+        torch.cuda.synchronize()
+        bound_ms, bound_by = control_step_bound(fbuf, ibuf, counts, n)
+        sweep[n] = dict(ms=kernel_ms, bound_ms=bound_ms, host_enqueue_ms=host_ms)
+        log(f"[phase 4] sweep, main variant at N={n}: {kernel_ms:.4f} ms/launch (CUDA events, "
+            f"{TIMING_LAUNCHES} launches; host enqueue {host_ms:.4f} ms/launch), "
+            f"{n / kernel_ms * 1e3:.1f} env-steps/s; bound {bound_ms:.5f} ms by {bound_by}")
+    return sweep
 
 
 def _check_info(info, where):
@@ -753,7 +804,6 @@ def phase_sharded(g1_path):
     fields, cmd = fx.random_sim_state(model, NUM_ENVS, seed=43, height=fx.G1_PELVIS_HEIGHT)
     state, cmd = sim_state(fields, DEVICE), torch.as_tensor(cmd, device=DEVICE)
     fbuf, ibuf, counts = cs.pack_model(fc, params)
-    nb, nd, ncp, nsph, npair, substeps, n_np = counts
     times = {}
     for n in SHARD_ENVS:
         sh = EnvShard(0, n, NUM_ENVS)
@@ -762,15 +812,12 @@ def phase_sharded(g1_path):
         kernel_ms = _time_ms(lambda: cs.launch_control_step(fc, params, inp), TIMING_LAUNCHES)
         plain_ms = (_time_ms(lambda: sharded_fused_step(fc, params, local, lcmd, sh), PLAIN_CALLS)
                     if n == SHARD_ENVS[0] else None)
-        flops = control_step_flops(nb, nd, ncp, npair, substeps) * n
-        io_bytes = control_step_bytes(fbuf, ibuf, n, nb, nd)
-        bound_ms = max(flops / PEAK_F32, io_bytes / PEAK_BYTES) * 1e3
-        bound_by = "operations" if flops / PEAK_F32 >= io_bytes / PEAK_BYTES else "bytes"
+        bound_ms, bound_by = control_step_bound(fbuf, ibuf, counts, n)
         times[n] = (kernel_ms, plain_ms, bound_ms, bound_by)
         log(f"[phase 9] sharded launch at {n} envs (one rank's shard of {NUM_ENVS}): kernel "
             f"{kernel_ms:.4f} ms/launch (CUDA events, {TIMING_LAUNCHES} launches)"
             + (f", plain sharded step {plain_ms:.4f} ms/call ({PLAIN_CALLS} calls)" if plain_ms else "")
-            + f"; bound {bound_ms:.5f} ms by {bound_by} ({io_bytes} bytes)")
+            + f"; bound {bound_ms:.5f} ms by {bound_by}")
     return worst, times
 
 
@@ -922,6 +969,54 @@ def phase_two_ranks(g1_path, clip_path):
                 iter_seconds=[x["iter_seconds"] for x in rows])
 
 
+def _card_line():
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return smi.stdout.strip().splitlines()[0]
+
+
+def compare_kernel(other_dir) -> int:
+    """This checkout's kernel against the one in ``other_dir`` (another
+    checkout), main variant, the same 4096-env input, timed in turns."""
+    import importlib.util
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    path = os.path.join(os.path.abspath(other_dir), "add_gym_torch", "physics", "cuda_step.py")
+    spec = importlib.util.spec_from_file_location("other_cuda_step", path)
+    other = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(other)
+    for name, mod in (("other", other), ("this", cs)):
+        build = mod.build_library()
+        log(f"[compare] {name} kernel {build['path']} built in {build['seconds']:.1f} s")
+        for line in build["log"].splitlines():
+            if any(w in line for w in ("registers", "spill", "stack")):
+                log(f"[compare] {name} ptxas: {line.strip()}")
+    model, fc, params = model_setup(fx.write_g1_fixture(FIXTURES), "g1")
+    fc_other = FusedModelConstants(model)    # each module caches its buffers on its own fc
+    fields, cmd = fx.random_sim_state(model, NUM_ENVS, seed=7, height=fx.G1_PELVIS_HEIGHT)
+    inp = cs.pack_state(sim_state(fields, DEVICE), torch.as_tensor(cmd, device=DEVICE))
+    runs = {"other": lambda: other.launch_control_step(fc_other, params, inp),
+            "this": lambda: cs.launch_control_step(fc, params, inp)}
+    times = {"other": [], "this": []}
+    for name in ("other", "this", "this", "other"):
+        times[name].append(_time_ms(runs[name], TIMING_LAUNCHES))
+        log(f"[compare] {name}: {times[name][-1]:.4f} ms/launch at N={NUM_ENVS} "
+            f"(CUDA events, {TIMING_LAUNCHES} launches)")
+    (a_state, a_contact), (b_state, b_contact) = (
+        cs.unpack_state(runs[name](), model.nd) for name in ("other", "this"))
+    diff = {f: (getattr(a_state, f) - getattr(b_state, f)).abs().max().item()
+            for f in fx.STATE_FIELDS}
+    diff["contact"] = (a_contact - b_contact).abs().max().item()
+    print(json.dumps({"compare_kernel": {"n": NUM_ENVS, "other_ms": times["other"],
+                                         "this_ms": times["this"], "max_abs_diff": diff}}))
+    print(_card_line())
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -937,8 +1032,11 @@ def main() -> int:
     log(f"[phase 1] kernel library {os.path.relpath(build['path'], ROOT)} "
         f"built in {build['seconds']:.1f} s")
     for line in build["log"].splitlines():
-        if "registers" in line or "spill" in line or "stack" in line:
+        if any(w in line for w in ("entry function", "registers", "spill", "stack", "smem")):
             log(f"[phase 1] ptxas: {line.strip()}")
+    for per in (False, True):
+        log(f"[phase 1] {'per-env' if per else 'main'} variant launch shape: "
+            f"{cs.kernel_info(per)}")
 
     mini_path = fx.write_mini_mjcf(FIXTURES)
     g1_path = fx.write_g1_fixture(FIXTURES)
@@ -953,6 +1051,7 @@ def main() -> int:
     times = {"main": phase_times(g1_path, False), "dr": phase_times(g1_path, True),
              "np": phase_times(g1_path, False, geoms=True)}
     np_ext = times["np"][4]
+    sweep = phase_sweep(g1_path)
     train = phase_train(g1_path, clip_path)
     train_dr = phase_train_dr(g1_path, clip_path)
     np_env, train_np = phase_train_np(g1_path, clip_path)
@@ -980,6 +1079,7 @@ def main() -> int:
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": None,
+            "design": DESIGN,
         })
     kernel_ms, plain_ms, bound_ms, bound_by = shard_times[SHARD_ENVS[0]]
     entries.append({
@@ -994,6 +1094,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "design": DESIGN + "; the same kernel launched per rank",
     })
     print(json.dumps({"kernels": entries}))
     print(json.dumps({
@@ -1006,6 +1107,7 @@ def main() -> int:
         "np_train_peak_device_bytes": train_np["peak_bytes"],
         "compute_np_ext_ms": np_ext["ms"], "compute_np_ext_device_ops": np_ext["device_ops"],
         "np_per_env_max_abs_err": max(worst_np[True].values()),
+        "kernel_sweep": {str(n): v for n, v in sweep.items()},
         "sharded_ms_per_launch": {str(n): t[0] for n, t in shard_times.items()},
         "sharded_bound_ms": {str(n): t[2] for n, t in shard_times.items()},
         "cli_env_steps_per_s": [cli["rate_iter2"], cli["rate_iter3"]],
@@ -1013,11 +1115,7 @@ def main() -> int:
         "smoke_seconds": time.perf_counter() - T_START,
         "num_envs": NUM_ENVS, "steps_per_iter": STEPS,
     }))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    print(smi.stdout.strip().splitlines()[0])
+    print(_card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -1028,4 +1126,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--two-rank-worker"]:
         two_rank_worker(*sys.argv[2:5])
         sys.exit(0)
+    if sys.argv[1:2] == ["--compare-kernel"]:
+        sys.exit(compare_kernel(sys.argv[2]))
     sys.exit(main())

@@ -7,7 +7,12 @@
   of minutes there): free fall, ground contact and joint limits.
 * The CUDA kernel's per-env device function (``csrc/control_step.cuh``),
   built with the host C++ compiler, against the plain step on both
-  fixtures: the kernel's arithmetic, checked without a card.
+  fixtures: the kernel's arithmetic, checked without a card.  The card
+  runs it with a warp per env; the host runs it with a team of 1 lane and
+  with 32 lanes emulated one after another (``AgtHostTeam``), and the two
+  must agree bit for bit, main and per-env, with and without narrowphase
+  rows.  A 32-body model (the kernel's most) by the 32-lane team matches
+  the plain step too.
 * The per-env variant (domain randomization: per-env ``kp``/``kv``
   ``[N, nd]``, friction ``[N]`` and mass scale ``[N]`` in [0.5, 2.0]): the
   plain step against the Pallas kernel body with ``use_ms`` (interpret
@@ -310,20 +315,23 @@ def test_build_env_refuses_missing_cuda(tmp_path):
 
 _SHIM = r"""
 #include "control_step.cuh"
-extern "C" void agt_control_step_host(const float* f, const int* ib, int nb, int nd, int ncp,
-                                      int nsph, int npair, int substeps, int n_np,
-                                      const float* in, float* out, int n) {
+// the per-env step over all n envs by a host team of kTeam lanes
+template <bool kPerEnv, int kTeam>
+static void run(const float* f, const int* ib, int nb, int nd, int ncp, int nsph, int npair,
+                int substeps, int n_np, const float* in, float* out, int n) {
   AgtModel m{f, ib, nb, nd, ncp, nsph, npair, substeps, n_np};
   AgtEnvScratch s;
-  for (int e = 0; e < n; ++e) agt_control_step_env(m, s, in, out, n, e);
+  for (int e = 0; e < n; ++e) agt_control_step_env<kPerEnv>(AgtHostTeam<kTeam>(), m, s, in, out, n, e);
 }
-extern "C" void agt_control_step_dr_host(const float* f, const int* ib, int nb, int nd, int ncp,
-                                         int nsph, int npair, int substeps, int n_np,
-                                         const float* in, float* out, int n) {
-  AgtModel m{f, ib, nb, nd, ncp, nsph, npair, substeps, n_np};
-  AgtEnvScratch s;
-  for (int e = 0; e < n; ++e) agt_control_step_env<true>(m, s, in, out, n, e);
-}
+#define AGT_ENTRY(name, per_env, team)                                                        \
+  extern "C" void name(const float* f, const int* ib, int nb, int nd, int ncp, int nsph,     \
+                       int npair, int substeps, int n_np, const float* in, float* out, int n) { \
+    run<per_env, team>(f, ib, nb, nd, ncp, nsph, npair, substeps, n_np, in, out, n);          \
+  }
+AGT_ENTRY(agt_control_step_host, false, 1)
+AGT_ENTRY(agt_control_step_dr_host, true, 1)
+AGT_ENTRY(agt_control_step_host32, false, 32)
+AGT_ENTRY(agt_control_step_dr_host32, true, 32)
 """
 
 
@@ -342,7 +350,8 @@ def host_kernel(tmp_path_factory):
         check=True, capture_output=True,
     )
     lib = ctypes.CDLL(str(lib_path))
-    for fn in (lib.agt_control_step_host, lib.agt_control_step_dr_host):
+    for fn in (lib.agt_control_step_host, lib.agt_control_step_dr_host,
+               lib.agt_control_step_host32, lib.agt_control_step_dr_host32):
         fn.restype = None
         fn.argtypes = (
             [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2 + [ctypes.c_int]
@@ -350,17 +359,24 @@ def host_kernel(tmp_path_factory):
     return lib
 
 
-def _host_step(host_kernel, fc, params, state, cmd):
+def _host_out(host_kernel, fc, params, inp, per_env, team=1):
+    """The output block of one control step by the device function built
+    for the host, stepped by a host team of ``team`` lanes (1 or 32)."""
+    n = inp.shape[1]
+    fbuf, ibuf, counts = cs.pack_model(fc, params, per_env)
+    out = torch.empty((13 + 3 * fc.nd + fc.nb, n))
+    name = "agt_control_step" + ("_dr" if per_env else "") + "_host" + ("32" if team == 32 else "")
+    getattr(host_kernel, name)(fbuf.ctypes.data, ibuf.ctypes.data, *counts, inp.data_ptr(),
+                               out.data_ptr(), n)
+    return out
+
+
+def _host_step(host_kernel, fc, params, state, cmd, team=1):
     """One control step by the device function built for the host: the
     per-env variant for per-env ``params``, else the main one."""
-    n, nd = state.dof_pos.shape
-    fbuf, ibuf, counts = cs.pack_model(fc, params)
     inp = cs.pack_state(state, cmd, params)
-    out = torch.empty((13 + 3 * nd + fc.nb, n))
-    fn = (host_kernel.agt_control_step_dr_host if inp.shape[0] == 15 + 6 * nd
-          else host_kernel.agt_control_step_host)
-    fn(fbuf.ctypes.data, ibuf.ctypes.data, *counts, inp.data_ptr(), out.data_ptr(), n)
-    return cs.unpack_state(out, nd)
+    per_env = inp.shape[0] == 15 + 6 * fc.nd
+    return cs.unpack_state(_host_out(host_kernel, fc, params, inp, per_env, team), fc.nd)
 
 
 @pytest.mark.parametrize("kind", ["ground_contact", "joint_limits"])
@@ -439,6 +455,64 @@ def test_per_env_variant_with_shared_values_is_the_main_variant(host_kernel, g1)
     assert torch.equal(a_contact, b_contact) and (a_contact > 0).any()
 
 
+@pytest.mark.parametrize("rows", ["no_np", "np"])
+@pytest.mark.parametrize("variant", ["main", "per_env"])
+@pytest.mark.parametrize("which", ["mini", "g1"])
+def test_team_sizes_agree_bitwise(host_kernel, mini, g1, which, variant, rows):
+    """The step by a host team of 32 lanes (each phase run for lanes 0..31
+    in turn) gives the bits of a team of 1, over 3 chained steps at N = 37:
+    every phase's items are independent and every sum across lanes runs in
+    a fixed order.  With ``np``, random held narrowphase rows on a few
+    bodies (the mini biped's 0 and 2, six bodies of the G1-shaped fixture)."""
+    model, fc, tp, jp = (mini if which == "mini" else g1)[:4]
+    height = 0.6 if which == "mini" else fx.G1_PELVIS_HEIGHT
+    n = 37
+    fields, cmd = _scenario(model, n, "ground_contact", height)
+    per_env = variant == "per_env"
+    if per_env:
+        tp = _per_env_params(tp, jp, n, seed=26)[0]
+    extra = None
+    if rows == "np":
+        fc = FusedModelConstants(model)
+        fc.np_bodies = np.array([0, 2] if which == "mini" else [0, 4, 9, 17, 23, 29])
+        extra = torch.as_tensor(np.random.default_rng(27).normal(
+            0.0, 20.0, (6 * len(fc.np_bodies), n)).astype(np.float32))
+    state = SimState(**{k: torch.as_tensor(v) for k, v in fields.items()})
+    cmd = torch.as_tensor(cmd)
+    for _ in range(3):
+        inp = cs.pack_state(state, cmd, tp, per_env)
+        if extra is not None:
+            inp = torch.cat([inp, extra])
+        one = _host_out(host_kernel, fc, tp, inp, per_env, team=1)
+        many = _host_out(host_kernel, fc, tp, inp, per_env, team=32)
+        assert torch.equal(one, many)
+        state, contact = cs.unpack_state(one, model.nd)
+        assert torch.isfinite(one).all() and (contact > 0).any()
+
+
+def test_wide_model_device_function_matches_plain_step(host_kernel, tmp_path):
+    """A model of AGT_MAX_BODIES = 32 bodies (the G1-shaped fixture with two
+    hinged hands, tree depth 11) by a host team of 32 lanes against the
+    plain step, 2 chained steps."""
+    model = build_physics_model(fx.write_wide_fixture(str(tmp_path), 2))
+    assert model.nb == 32
+    fc = FusedModelConstants(model)
+    tp = EngineParams(kp=torch.full((model.nd,), 50.0), kv=torch.full((model.nd,), 5.0))
+    fields, cmd = _scenario(model, 37, "ground_contact", fx.G1_PELVIS_HEIGHT)
+    state = SimState(**{k: torch.as_tensor(v) for k, v in fields.items()})
+    cmd = torch.as_tensor(cmd)
+    for _ in range(2):
+        k_state, k_contact = _host_step(host_kernel, fc, tp, state, cmd, team=32)
+        p_state, p_contact = fused_step(fc, tp, state, cmd)
+        _assert_step_close(k_state, k_contact, p_state, p_contact)
+        assert (p_contact > 0).any()
+        state = p_state
+    wider = build_physics_model(fx.write_wide_fixture(str(tmp_path), 3))
+    with pytest.raises(ValueError, match="at most 32"):
+        cs.pack_model(FusedModelConstants(wider), EngineParams(
+            kp=torch.full((wider.nd,), 50.0), kv=torch.full((wider.nd,), 5.0)))
+
+
 def test_per_env_input_block_layout(g1):
     model, fc, tp, jp = g1[:4]
     n, nd = 5, model.nd
@@ -456,10 +530,10 @@ def test_per_env_input_block_layout(g1):
     no_ms = dataclasses.replace(tpe, mass_scale=1.0)
     assert torch.equal(cs.pack_state(state, torch.as_tensor(cmd), no_ms)[-1], torch.ones(n))
     assert cs.pack_state(state, torch.as_tensor(cmd), tp).shape[0] == 13 + 4 * nd
-    # per-env values never reach the cached model buffer
+    # per-env values never reach the cached model buffer (dof rows kp, kv)
     fbuf = cs.pack_model(fc, tpe)[0]
     dof_start = cs.HDR + model.nb * cs.BODY
-    assert not fbuf[dof_start + 5: dof_start + nd * cs.DOF: cs.DOF].any()
+    assert not fbuf[dof_start + 5 * nd: dof_start + 7 * nd].any()
 
 
 def test_pack_model_layout(g1):
@@ -468,11 +542,20 @@ def test_pack_model_layout(g1):
     nb, nd, ncp, nsph, npair, substeps, n_np = counts
     assert (nb, nd, ncp, substeps, n_np) == (model.nb, model.nd, model.ncp, 4, 0)
     assert fbuf.size == cs.HDR + nb * cs.BODY + nd * cs.DOF + ncp * cs.PT + nsph * cs.SPH + npair * cs.PAIR
-    assert ibuf.size == nb + (nb + 1) + nsph + 2 * npair
-    cp_start = ibuf[nb: 2 * nb + 1]
+    assert ibuf.size == nb + (nb + 1) + nb + (nb + 1) + nsph + 2 * npair
+    # field-major: row k of the body section holds constant k of every body
+    np.testing.assert_array_equal(fbuf[cs.HDR + 51 * nb: cs.HDR + 52 * nb], fc.mass)
+    parent, depth = ibuf[:nb], ibuf[nb: 2 * nb + 1]
+    children = ibuf[2 * nb + 1: 3 * nb + 1].view(np.uint32)
+    assert depth[0] == 0 and depth[-1] == depth[:nb].max() == 10   # waist 3 + arm 7
+    for i in range(1, nb):
+        assert depth[i] == depth[parent[i]] + 1
+        assert children[parent[i]] >> i & 1
+    assert sum(bin(int(c)).count("1") for c in children) == nb - 1
+    cp_start = ibuf[3 * nb + 1: 4 * nb + 2]
     assert cp_start[0] == 0 and cp_start[-1] == ncp and (np.diff(cp_start) >= 0).all()
     dof_start = cs.HDR + nb * cs.BODY
-    kp = fbuf[dof_start + 5: dof_start + nd * cs.DOF: cs.DOF]
+    kp = fbuf[dof_start + 5 * nd: dof_start + 6 * nd]
     np.testing.assert_array_equal(kp, tp.kp.numpy())
     no_sc = cs.pack_model(fc, dataclasses.replace(tp, self_collision=False))[2]
     assert no_sc[4] == 0

@@ -14,7 +14,11 @@ geom tables) are held to the plain step too, and two ``compute_np_ext``
 calls on the same input must give the same bits.  The sharded step
 (``sharded_cuda_step``, per-rank launches of the same kernel) concatenated
 over 2 and 4 shards equals the unsharded kernel bit for bit at 4096 envs,
-and a one-rank ``Trainer`` on the card saves and resumes bit for bit.
+and a one-rank ``Trainer`` on the card saves and resumes bit for bit.  The
+kernel steps each env by one warp: two launches on one input give the same
+bits for every instance; it matches the plain step at N = 1, 37, 4000 and
+4096 (less than a block, ragged, full); and a model of ``AGT_MAX_BODIES``
+= 32 bodies runs while 33 are refused.
 """
 
 import dataclasses
@@ -105,6 +109,84 @@ def test_per_env_kernel_matches_plain_step(paths, which):
         got = k_contact if f == "contact" else getattr(k_state, f)
         want = p_contact if f == "contact" else getattr(p_state, f)
         torch.testing.assert_close(got, want, **tol, msg=lambda m: f"{f}: {m}")
+
+
+def _assert_matches_plain(fc, params, state, cmd, k_state, k_contact):
+    p_state, p_contact = fused_step(fc, params, state, cmd)
+    torch.cuda.synchronize()
+    for f, tol in fx.step_tolerances().items():
+        got = k_contact if f == "contact" else getattr(k_state, f)
+        want = p_contact if f == "contact" else getattr(p_state, f)
+        torch.testing.assert_close(got, want, **tol, msg=lambda m: f"{f}: {m}")
+    return p_contact
+
+
+@pytest.mark.parametrize("n", [1, 37, 4000, 4096])
+def test_kernel_matches_plain_step_at_n(paths, n):
+    """The G1-shaped fixture at N = 1 (one warp of a 4-warp block), 37, 4000
+    (a ragged last block) and 4096 envs."""
+    model, fc, params = _model(paths["g1"], True)
+    fields, cmd = fx.random_sim_state(model, n, seed=19 + n, height=fx.G1_PELVIS_HEIGHT)
+    state = SimState(**{k: torch.as_tensor(v, device="cuda") for k, v in fields.items()})
+    cmd = torch.as_tensor(cmd, device="cuda")
+    k_state, k_contact = cs.cuda_step(fc, params, state, cmd)
+    assert k_contact.shape == (n, model.nb)
+    p_contact = _assert_matches_plain(fc, params, state, cmd, k_state, k_contact)
+    if n > 1:
+        assert (p_contact > 0).any()
+
+
+@pytest.mark.parametrize("instance", ["main", "per_env", "np", "np_per_env", "sharded"])
+def test_two_launches_are_bitwise_equal(paths, instance):
+    """Every sum across a warp's lanes runs in a fixed order (no atomics):
+    two launches on one input block give the same bits, 4096 envs."""
+    n = 4096
+    geoms = instance.startswith("np")
+    model, fc, params = _model(paths["g1"], True)
+    if geoms:
+        model = attach_geoms(model, paths["g1"])
+        fc = FusedModelConstants(model)
+    if instance.endswith("per_env"):
+        pe = fx.per_env_params(params.kp.cpu().numpy(), params.kv.cpu().numpy(), n, seed=20)
+        params = dataclasses.replace(
+            params, **{k: torch.as_tensor(v, device="cuda") for k, v in pe.items()})
+    state, cmd = _bent(model, n, seed=21)
+    if instance == "sharded":
+        shard = EnvShard(n // 2, n, n)
+        local = SimState(**{f: v[shard.slice] for f, v in state.__dict__.items()})
+
+        def launch():
+            st, contact = cs.sharded_cuda_step(fc, params, local, cmd[shard.slice], shard)
+            return torch.cat([*(getattr(st, f) for f in fx.STATE_FIELDS), contact], dim=1)
+
+        a, b = launch(), launch()
+    else:
+        np_ext = compute_np_ext(fc, params, params.ctrl_dt / params.substeps, state)
+        inp = cs.pack_state(state, cmd, params, None, np_ext)
+        a, b = (cs.launch_control_step(fc, params, inp) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.isfinite(a).all()
+    assert torch.equal(a, b)
+
+
+def test_kernel_at_max_bodies(paths, tmp_path):
+    """A model of AGT_MAX_BODIES = 32 bodies (the G1-shaped fixture with two
+    hinged hands) launches and matches the plain step; 33 are refused."""
+    for extra in (2, 3):
+        model = build_physics_model(fx.write_wide_fixture(str(tmp_path), extra))
+        params = EngineParams(kp=torch.full((model.nd,), 50.0, device="cuda"),
+                              kv=torch.full((model.nd,), 5.0, device="cuda"))
+        fc = FusedModelConstants(model)
+        fields, cmd = fx.random_sim_state(model, 1000, seed=22, height=fx.G1_PELVIS_HEIGHT)
+        state = SimState(**{k: torch.as_tensor(v, device="cuda") for k, v in fields.items()})
+        cmd = torch.as_tensor(cmd, device="cuda")
+        if model.nb > 32:
+            with pytest.raises(ValueError, match="at most 32"):
+                cs.cuda_step(fc, params, state, cmd)
+            continue
+        assert model.nb == 32
+        k_state, k_contact = cs.cuda_step(fc, params, state, cmd)
+        assert (_assert_matches_plain(fc, params, state, cmd, k_state, k_contact) > 0).any()
 
 
 def _bent(model, n, seed):
@@ -269,8 +351,8 @@ def test_dr_train_iter_through_kernel_matches_plain_step(paths):
 def test_sharded_kernel_matches_unsharded_bitwise(paths, per_env):
     """4096 envs of the G1-shaped fixture split into 2 and 4 shards: each
     shard's launch (global-size per-env leaves sliced to it) concatenated
-    gives the unsharded kernel's bits, since the kernel is one thread per
-    env."""
+    gives the unsharded kernel's bits, since one warp steps each env alone
+    whatever the env count."""
     model, fc, params = _model(paths["g1"], True)
     n = 4096
     if per_env:
