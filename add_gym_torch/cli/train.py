@@ -7,8 +7,13 @@ applies dotted overrides, joins the data-parallel group, dispatches
 Usage (one GPU; ``device=cpu`` runs on the CPU):
 
     python -m add_gym_torch.cli.train engine.num_envs=4096 experiment_name=run1
-    python -m add_gym_torch.cli.train mode=test checkpoint=logs/run1/checkpoint
+    python -m add_gym_torch.cli.train test checkpoint=logs/run1/checkpoint
     python -m add_gym_torch.cli.train dr_pod max_iters=100      # a named config
+    python -m add_gym_torch.cli.train train agent=amp_g1       # AMP (ppo_g1: plain PPO)
+    python -m add_gym_torch.cli.train ppo256                   # plain PPO, 256 envs
+
+``debug.nans=true`` makes the ``Trainer`` check every phase's outputs for
+NaN and Inf (see ``learning/runner.py``).
 
 Data-parallel over the GPUs of a host, one process per GPU (``engine.num_envs``
 is the global count, split evenly over the ranks):
@@ -40,10 +45,6 @@ def main(argv=None):
     cfg = load_config(config_name, overrides)
     mode = cfg.get("mode", "train")
     dbg = cfg.get("debug", {}) or {}
-    if dbg.get("nans"):
-        raise NotImplementedError(
-            "debug.nans is JAX's jax_debug_nans; the port has no counterpart yet "
-            "(ROADMAP queue 1, item 8)")
     dcfg = cfg.get("distributed", {}) or {}
     dist = initialize_distributed(cfg.get("device", "cuda"), backend=dcfg.get("backend", "auto"))
     try:

@@ -574,6 +574,17 @@ class ImitationEnv:
             global_obs=self.task.global_obs,
         )
 
+    def fetch_disc_obs_demo(self, n: int, sampler_state, generator=None, draws=None):
+        """Disc obs [n, disc_obs_dim] of ``n`` fresh demo windows (the AMP
+        agent's positives): motion ids, then start times from the sampler,
+        then the window ending there.  ``draws = (ids, times)`` replaces the
+        sampling (the parity tests inject the JAX package's draws)."""
+        if draws is None:
+            draws = self.sample_resets(n, sampler_state, generator)
+        ids = to_device(draws[0], self.device, torch.int64)
+        times = to_device(draws[1], self.device, torch.float32)
+        return self._disc_obs_demo(ids, times)
+
     # ----------------------------------------------------------------- reset
 
     def _sample_times(self, motion_ids, sampler_state, generator=None):

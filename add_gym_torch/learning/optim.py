@@ -1,4 +1,5 @@
-"""Global-norm gradient clip + Adam over a parameter list.
+"""Global-norm gradient clip + Adam, or + SGD with momentum, over a
+parameter list.
 
 Counterpart of ``add_gym_tpu/learning/optim.py::fused_clip_adam``
 (``optimizer: fused_adam``) and of the ``optax.chain(clip_by_global_norm(c),
@@ -12,6 +13,10 @@ names.  (``torch.nn.utils.clip_grad_norm_`` is not the same clip: it
 divides by ``|g| + 1e-6``.)  Parameters are updated in place; the moments
 are new tensors.  The arithmetic runs as ``torch._foreach_*`` list ops, one
 launch per op for the whole parameter list on a GPU.
+
+``optimizer: sgd`` is the JAX agent's ``optax.chain(clip_by_global_norm(c),
+sgd(lr, momentum))``: the same clip, then optax's ``trace`` (``t <- g + m
+t``, :class:`SGDState`) and the update ``-lr t`` (:func:`clip_sgd_step`).
 """
 
 from __future__ import annotations
@@ -37,8 +42,21 @@ def init_adam(params) -> AdamState:
     )
 
 
+@dataclass
+class SGDState:
+    trace: list          # momentum traces, one per parameter
+
+
+def init_sgd(params) -> SGDState:
+    return SGDState(trace=[torch.zeros_like(p) for p in params])
+
+
 def global_norm(grads):
     return torch.sqrt(torch.stack([torch.sum(g * g) for g in grads]).sum())
+
+
+def _clip(grads, clip: float):
+    return torch._foreach_mul(grads, clip / torch.clamp_min(global_norm(grads), clip))
 
 
 @torch.no_grad()
@@ -47,7 +65,7 @@ def clip_adam_step(params, grads, state: AdamState, learning_rate: float, clip: 
     """One clipped Adam step: updates ``params`` in place and returns the
     new moments."""
     params, grads = list(params), list(grads)
-    grads = torch._foreach_mul(grads, clip / torch.clamp_min(global_norm(grads), clip))
+    grads = _clip(grads, clip)
     count = state.count + 1
     t = count.to(torch.float32)
     bc1 = 1.0 - torch.pow(b1, t)
@@ -64,3 +82,15 @@ def clip_adam_step(params, grads, state: AdamState, learning_rate: float, clip: 
     torch._foreach_add_(params, torch._foreach_div(torch._foreach_mul(m_hat, -learning_rate),
                                                    denom))
     return AdamState(count=count, mu=mu, nu=nu)
+
+
+@torch.no_grad()
+def clip_sgd_step(params, grads, state: SGDState, learning_rate: float, clip: float,
+                  momentum: float = 0.9) -> SGDState:
+    """One clipped SGD-with-momentum step: updates ``params`` in place and
+    returns the new traces."""
+    params, grads = list(params), list(grads)
+    trace = torch._foreach_mul(state.trace, momentum)
+    torch._foreach_add_(trace, _clip(grads, clip))
+    torch._foreach_add_(params, torch._foreach_mul(trace, -learning_rate))
+    return SGDState(trace=trace)

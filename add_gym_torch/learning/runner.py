@@ -14,6 +14,12 @@ the learner's state identical across ranks.  Every rank calls
 :meth:`Trainer.save` and meets the others at a barrier, and rank 0 writes;
 evaluation runs the same number of chunks on every rank and reduces its
 episode sums.
+
+``debug.nans: true`` (the closest counterpart of the JAX package's
+``jax_debug_nans``) checks every floating output of each phase of every
+``train_iter`` (the rollout's trajectory and next obs, the train data, the
+update's infos) and raises ``FloatingPointError`` naming the phase and the
+tensor; off, it adds no work.
 """
 
 from __future__ import annotations
@@ -39,6 +45,25 @@ from add_gym_torch.utils.logger import TrainLogger
 CKPT_FILE = "train_state.pt"
 VIDEO_QUEUED = ("record_video / video_interval is not ported yet (it needs the viewer "
                 "tools, ROADMAP queue 1, item 6)")
+
+
+def _opt_family(name: str) -> str:
+    """``adam`` and ``fused_adam`` share one Adam state; ``sgd`` has traces."""
+    return "sgd" if name == "sgd" else "adam"
+
+
+def nan_check_hook(iteration: int):
+    """A ``train_iter`` hook that raises ``FloatingPointError`` at the first
+    non-finite floating tensor of a phase's outputs (``debug.nans``)."""
+
+    def hook(phase, outputs):
+        for k, v in outputs.items():
+            if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+                raise FloatingPointError(
+                    f"debug.nans: non-finite values in the {phase} output {k!r} at iter "
+                    f"{iteration}")
+
+    return hook
 
 
 def episode_stats(rewards: np.ndarray, dones: np.ndarray):
@@ -96,6 +121,7 @@ class Trainer:
         self.iters_per_output = int(run_key("iters_per_output", 100))
         self.test_episodes = int(run_key("test_episodes", 10))
         self.max_samples = int(run_key("max_samples", 10**14))
+        self.debug_nans = bool((cfg.get("debug", {}) or {}).get("nans", False))
         self.exp_dir = os.path.join(cfg.get("log_dir", "logs/"), cfg.get("experiment_name", "exp"))
         self.logger = TrainLogger(self.exp_dir, is_main=dist.is_main)
         self.iter = 0
@@ -153,13 +179,17 @@ class Trainer:
         path = fetch_dir(str(path))
         payload = torch.load(os.path.join(path, CKPT_FILE), map_location=self.device,
                              weights_only=True)
+        saved, active = payload.get("optimizer", self.agent.cfg.optimizer), self.agent.cfg.optimizer
+        if _opt_family(saved) != _opt_family(active):
+            raise ValueError(
+                f"checkpoint at {path} does not match the configured optimizer '{active}' "
+                f"and no adam-family migration applies; set agent.optimizer to the config "
+                f"the checkpoint was saved with (it was saved under '{saved}')")
         self.ts = load_train_state_dict(self.ts, payload["train_state"])
         self.iter = int(payload["iter"])
         print(f"Loaded {path} at iter {self.iter} (state sha256 {state_digest(self.ts)})")
-        saved = payload.get("optimizer", self.agent.cfg.optimizer)
-        if saved != self.agent.cfg.optimizer:
-            print(f"Loaded Adam moments saved under '{saved}' into "
-                  f"'{self.agent.cfg.optimizer}' (the same state)")
+        if saved != active:
+            print(f"Loaded Adam moments saved under '{saved}' into '{active}' (the same state)")
 
     def load(self, path):
         """Load a checkpoint (a directory, local or a ``gs://``, ``s3://``
@@ -167,7 +197,8 @@ class Trainer:
         and every rank receives its train state and ``iter``, so the ranks
         go on as one model even where only rank 0 can see the checkpoint.
         ``adam`` and ``fused_adam`` share one Adam state, so a checkpoint
-        of either loads under the other."""
+        of either loads under the other; one saved under ``sgd`` loads
+        only under ``sgd``, and the other way round (``ValueError``)."""
         if self.dist.is_main:
             self._read(path)
         self._sync_from_main()
@@ -194,7 +225,8 @@ class Trainer:
         checkpoint every ``iters_per_output`` iterations, metrics every
         ``metrics_every``, a ``torch.profiler`` trace over the ``profile``
         window; a non-finite loss saves a post-mortem into ``crash/`` and
-        raises ``FloatingPointError``."""
+        raises ``FloatingPointError``, and so does, under ``debug.nans``, a
+        non-finite output of any phase of an iteration."""
         start = time.time()
         test_info = {}
         samples_per_iter = self.agent.cfg.steps_per_iter * self.num_envs
@@ -219,7 +251,8 @@ class Trainer:
 
             t_iter = time.time()
             self.ts, self.es, self.obs, info = self.agent.train_iter(
-                self.ts, self.es, self.obs, generator=self.generator)
+                self.ts, self.es, self.obs, generator=self.generator,
+                hook=nan_check_hook(self.iter) if self.debug_nans else None)
             samples += samples_per_iter
 
             if prof is not None and self.iter == prof_start + prof_count - 1:

@@ -74,7 +74,8 @@ Phases (any failure exits non-zero; nothing here catches its own error):
    add_gym_torch.cli.train train`` at 4096 envs (the G1-shaped fixture, the
    synthetic clip, bf16 ``fc_3layers_1024units``) for 2 iterations with a
    50-step evaluation, then again to iteration 3 (an auto-resume), then
-   ``mode=test checkpoint=...`` in this process, without a launcher.  Checks the resumed
+   config ``test`` with ``checkpoint=...`` in this process, without a
+   launcher.  Checks the resumed
    state's digest against the saved one, ``config.json``, ``log.txt``,
    ``metrics.jsonl`` (3 rows, ``sample_count`` 3 x 32 x 4096) and the test
    mode's JSON line.
@@ -86,7 +87,23 @@ Phases (any failure exits non-zero; nothing here catches its own error):
    32 times an iteration through ``sharded_cuda_step`` on 2048 envs, and
    that the losses are finite; prints the rate as two ranks sharing one
    card (the collectives' cost on one card, no multi-GPU figure).
-12. The kernel line, the card's name and power limit, and the result line.
+12. AMP at full width: config ``train`` with ``agent=amp_g1`` (f32
+   ``fc_3layers_1024units`` actor and critic, ``fc_2layers_1024units``
+   disc) at 4096 envs, one warm-up and two timed iterations: exactly 32
+   main-variant launches per iteration, finite infos with ``disc_loss`` and
+   ``disc_grad_penalty``, a ``NormState`` disc normalizer whose count grows
+   by 2 x 32 x 4096 (agent and fresh demo obs) per iteration, parameters
+   that changed; env-steps/s, the CUDA-event split of one more iteration
+   and the peak device memory of the timed iterations.
+13. Plain PPO: config ``ppo256`` as the file sets it (256 envs), then
+   ``train`` with ``agent=ppo_g1`` at 4096 envs, one warm-up and two timed
+   iterations each: 32 launches per iteration, no disc parameters, no disc
+   loss in the infos (``disc_reward_mean`` and ``_std`` are 0, as in the
+   JAX package), ``task_reward_mean`` not 0.  Then two timed iterations of
+   ``train`` with ``agent.optimizer=sgd agent.actor_std_type=variable`` at
+   4096 envs: the SGD traces and the logstd head change, the infos are
+   finite.
+14. The kernel line, the card's name and power limit, and the result line.
 
 ``python3 chip_smoke.py --compare-kernel DIR`` runs no phase but this:
 ``DIR`` holds another checkout of the repository (its own
@@ -95,7 +112,7 @@ its kernel into ``DIR/build``); the two kernels' main variants step the
 same 4096-env input in turns (other, this, this, other), and it prints
 each one's ms per launch and the largest difference of their outputs.
 
-Each path (3, 5, 6, 7, 11) is driven with the launch counts set to 0 just
+Each path (3, 5, 6, 7, 11, 12, 13) is driven with the launch counts set to 0 just
 before it and read just after (phase 11 in each rank's own process).  Each log line starts with the seconds since the
 start; the JSON lines, the card's line and the result line are printed
 bare.  The kernel-vs-plain ``train_iter`` check of ``dr_pod`` is a
@@ -121,6 +138,8 @@ import torch
 
 from add_gym_torch.builder import build_agent, build_env
 from add_gym_torch.cli.train import main as cli_main
+from add_gym_torch.learning.normalizer import NormState
+from add_gym_torch.learning.optim import SGDState
 from add_gym_torch.parallel.mesh import EnvShard
 from add_gym_torch.physics import cuda_step as cs
 from add_gym_torch.physics import engine as eng
@@ -160,6 +179,7 @@ TRAIN_WARMUP = 1          # bench.py's protocol, shortened: warm-up iterations,
 TRAIN_WINDOW = 3          # iterations per window (bench.py: 2 and 5),
 TRAIN_WINDOWS = 3         # timed windows after one discarded ramp window
 DR_TIMED = 2
+MODE_TIMED = 2            # phases 12 and 13: timed iterations of each agent mode
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM rate
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
@@ -354,11 +374,14 @@ def phase_np_kernel_vs_plain(g1_path):
 
 
 def _slice_cfg(g1_path, clip_path, num_envs, steps, mixed=None, kernel="auto", net=None,
-               name="train", general_narrowphase=False):
-    cfg = load_config(name)
+               name="train", general_narrowphase=False, overrides=()):
+    """Config ``name`` with ``overrides`` on the fixture and the clip;
+    ``num_envs`` None keeps the file's env count."""
+    cfg = load_config(name, list(overrides))
     cfg["robot"]["asset_path"] = g1_path
     cfg["task"]["motion_file"] = clip_path
-    cfg["engine"]["num_envs"] = num_envs
+    if num_envs is not None:
+        cfg["engine"]["num_envs"] = num_envs
     cfg["engine"]["kernel"] = kernel
     cfg["engine"]["general_narrowphase"] = general_narrowphase
     cfg["agent"]["steps_per_iter"] = steps
@@ -553,11 +576,15 @@ def _check_info(info, where):
             raise AssertionError(f"{where}: info[{k}] = {v} is not finite")
 
 
+def _changed(before, params):
+    return any(not torch.equal(x, y) for x, y in zip(before, params))
+
+
 def _train_setup(name, g1_path, clip_path, seed, num_envs=NUM_ENVS, **kw):
     cfg = _slice_cfg(g1_path, clip_path, num_envs, STEPS, name=name, **kw)
     env = build_env(cfg, device=DEVICE)
     agent = build_agent(cfg, env)
-    ts, es, obs = _start(env, agent, num_envs, seed=seed)
+    ts, es, obs = _start(env, agent, int(cfg["engine"]["num_envs"]), seed=seed)
     g = torch.Generator(device=DEVICE)
     g.manual_seed(seed + 1)
     return env, agent, [ts, es, obs], g
@@ -611,31 +638,38 @@ def phase_train(g1_path, clip_path):
     if launches != iters * a.steps_per_iter or dr_launches:
         raise AssertionError(f"{launches} main / {dr_launches} per-env launches over {iters} "
                              f"iterations, expected {iters * a.steps_per_iter} / 0")
-    if not any(not torch.equal(x, y) for x, y in zip(p0, state[0].params.parameters())):
+    if not _changed(p0, state[0].params.parameters()):
         raise AssertionError("train_iter left every parameter unchanged")
     rate = float(np.median(rates))
     log(f"[phase 5] train env-steps/s (median of {TRAIN_WINDOWS} windows of {TRAIN_WINDOW}): "
         f"{rate:.1f}; {launches} kernel launches over {iters} iterations "
         f"({launches // iters} per iteration); peak device memory {peak / 2**30:.3f} GiB")
 
-    # the split of one more iteration, CUDA events at the phase boundaries
+    split, total = _split(agent, state, g, "phase 5")
+    return dict(rate=rate, launches=launches, split=split, total_ms=total, peak_bytes=peak)
+
+
+def _split(agent, state, g, where):
+    """The split of one more iteration on ``state``: CUDA events at the
+    phase boundaries (``train_iter``'s hook).  Returns (ms by phase, total ms)."""
     marks = []
 
-    def hook(phase):
+    def hook(phase, outputs=None):
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         marks.append((phase, ev))
 
     hook("start")
-    agent.train_iter(*state, generator=g, hook=hook)
+    ts, es, obs, _ = agent.train_iter(*state, generator=g, hook=hook)
+    state[:] = [ts, es, obs]
     hook("end")
     torch.cuda.synchronize()
-    split = {b[0]: a_[1].elapsed_time(b[1]) for a_, b in zip(marks, marks[1:])}
+    split = {b[0]: a[1].elapsed_time(b[1]) for a, b in zip(marks, marks[1:])}
     total = marks[0][1].elapsed_time(marks[-1][1])
-    log(f"[phase 5] split of one iteration (CUDA events): rollout {split['rollout']:.2f} ms, "
+    log(f"[{where}] split of one iteration (CUDA events): rollout {split['rollout']:.2f} ms, "
         f"build_train_data {split['data']:.2f} ms, update_model {split['update']:.2f} ms, "
         f"normalizers+info {split['end']:.2f} ms; total {total:.2f} ms")
-    return dict(rate=rate, launches=launches, split=split, total_ms=total, peak_bytes=peak)
+    return split, total
 
 
 def phase_train_dr(g1_path, clip_path):
@@ -666,7 +700,7 @@ def phase_train_dr(g1_path, clip_path):
     if launches or dr_launches != (1 + DR_TIMED) * steps:
         raise AssertionError(f"{launches} main / {dr_launches} per-env launches, expected "
                              f"0 / {(1 + DR_TIMED) * steps}")
-    if not any(not torch.equal(x, y) for x, y in zip(p0, state[0].params.parameters())):
+    if not _changed(p0, state[0].params.parameters()):
         raise AssertionError("train_iter left every parameter unchanged")
     ms = state[1].dr["mass_scale"]
     rate = steps * NUM_ENVS / float(np.median(times))
@@ -710,7 +744,7 @@ def phase_train_np(g1_path, clip_path):
     if (launches, dr_launches, np_launches) != (want, 0, want):
         raise AssertionError(f"{launches} main / {dr_launches} per-env / {np_launches} with rows, "
                              f"expected {want} / 0 / {want}")
-    if not any(not torch.equal(x, y) for x, y in zip(p0, state[0].params.parameters())):
+    if not _changed(p0, state[0].params.parameters()):
         raise AssertionError("train_iter left every parameter unchanged")
     peak = torch.cuda.max_memory_allocated()
     rate = steps * NUM_ENVS / float(np.median(times))
@@ -862,10 +896,10 @@ def phase_cli(g1_path, clip_path):
     out2 = _run(_torchrun(1) + cli + args + ["max_iters=3"], "phase 10")
     exp = os.path.join(logs, "cli")
     ckpt = os.path.join(exp, "checkpoint")
-    # mode=test in this process, without a launcher
+    # config test (mode test) in this process, without a launcher
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        test_info = cli_main(args + ["mode=test", f"checkpoint={ckpt}"])
+        test_info = cli_main(["test"] + args[1:] + [f"checkpoint={ckpt}"])
     out3 = buf.getvalue()
 
     saved1, loaded2, saved2 = _digests(out1, "Saved"), _digests(out2, "Loaded"), _digests(out2, "Saved")
@@ -969,6 +1003,130 @@ def phase_two_ranks(g1_path, clip_path):
                 iter_seconds=[x["iter_seconds"] for x in rows])
 
 
+def _mode_iters(agent, state, g, where, track=None):
+    """One warm-up and ``MODE_TIMED`` timed ``train_iter`` calls on
+    ``state``, the launch counts set to 0 before and read after: exactly
+    ``steps_per_iter`` main-variant launches per iteration and none of
+    another instance.  ``track(state)`` is read around each timed
+    iteration.  Returns (env-steps/s, the median over the timed
+    iterations; launches; the last info; the peak device bytes of the
+    timed iterations; the change of ``track`` over each)."""
+    steps, n = agent.cfg.steps_per_iter, int(state[2].shape[0])
+    reset_counts()
+    dt, _ = _train_iters(agent, state, g, 1, f"{where} warm-up")
+    log(f"[{where}] warm-up iteration: {dt:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    times, deltas = [], []
+    for i in range(MODE_TIMED):
+        before = cs.cuda_step.launches
+        t0 = track(state) if track else None
+        dt, info = _train_iters(agent, state, g, 1, f"{where} iteration {i}")
+        if cs.cuda_step.launches - before != steps:
+            raise AssertionError(f"{where} iteration {i}: {cs.cuda_step.launches - before} kernel "
+                                 f"launches, expected {steps}")
+        if track:
+            deltas.append(track(state) - t0)
+        times.append(dt)
+        log(f"[{where}] iteration {i}: {dt:.4f} s = {steps * n / dt:.1f} env-steps/s; "
+            f"loss={info['loss'].item():.4f} mean_reward={info['mean_reward'].item():.4f} "
+            f"task_reward_mean={info['task_reward_mean'].item():.4f}")
+    peak = torch.cuda.max_memory_allocated()
+    counts = (cs.cuda_step.launches, cs.cuda_step.dr_launches, cs.cuda_step.np_launches)
+    if counts != ((1 + MODE_TIMED) * steps, 0, 0):
+        raise AssertionError(f"{where}: {counts} main / per-env / with-rows launches, expected "
+                             f"{(1 + MODE_TIMED) * steps} / 0 / 0")
+    return steps * n / float(np.median(times)), counts[0], info, peak, deltas
+
+
+
+def phase_train_amp(g1_path, clip_path):
+    """AMP (``agent=amp_g1``) at 4096 envs through the main variant."""
+    env, agent, state, g = _train_setup("train", g1_path, clip_path, seed=50,
+                                        overrides=("agent=amp_g1",))
+    a = agent.cfg
+    if a.disc_mode != "amp" or not env.kernel or env.dr.enabled:
+        raise AssertionError("agent=amp_g1 must train AMP through the main variant of the kernel")
+    if not isinstance(state[0].disc_norm, NormState):
+        raise AssertionError(f"AMP's disc normalizer is a {type(state[0].disc_norm).__name__}")
+    log(f"[phase 12] amp_g1: num_envs={NUM_ENVS} steps_per_iter={a.steps_per_iter} "
+        f"actor={a.actor_net} critic={a.critic_net} disc={a.disc_net} "
+        f"mixed_precision={a.mixed_precision} disc_mixed_precision={a.disc_mixed_precision} "
+        f"disc_grad_penalty={a.disc_grad_penalty}")
+    p0 = [p.detach().clone() for p in state[0].params.parameters()]
+    torch.cuda.synchronize()
+    rate, launches, info, peak, grew = _mode_iters(
+        agent, state, g, "phase 12", track=lambda st: float(st[0].disc_norm.count))
+    want = 2 * a.steps_per_iter * NUM_ENVS
+    if grew != [want] * MODE_TIMED:
+        raise AssertionError(f"the disc normalizer's count grew by {grew}, expected {want} each")
+    missing = {"disc_loss", "disc_grad_penalty"} - set(info)
+    if missing:
+        raise AssertionError(f"AMP infos lack {sorted(missing)}")
+    if not _changed(p0, state[0].params.parameters()):
+        raise AssertionError("AMP train_iter left every parameter unchanged")
+    log(f"[phase 12] amp train env-steps/s (median of {MODE_TIMED}): {rate:.1f}; {launches} "
+        f"launches ({launches // (1 + MODE_TIMED)} per iteration); disc normalizer count "
+        f"+{want} per iteration; disc_loss={info['disc_loss'].item():.4f} "
+        f"disc_grad_penalty={info['disc_grad_penalty'].item():.4f} "
+        f"disc_reward_mean={info['disc_reward_mean'].item():.4f}; peak device memory "
+        f"{peak / 2**30:.3f} GiB")
+    split, total = _split(agent, state, g, "phase 12")
+    return dict(rate=rate, launches=launches, split=split, total_ms=total, peak_bytes=peak)
+
+
+def phase_train_ppo(g1_path, clip_path):
+    """Plain PPO: config ppo256 as the file sets it, then agent=ppo_g1 at
+    4096 envs; then SGD with the learned-std head at 4096 envs."""
+    out = {}
+    for label, name, num_envs, overrides, seed in (
+            ("ppo256", "ppo256", None, (), 60),
+            ("ppo", "train", NUM_ENVS, ("agent=ppo_g1",), 62)):
+        env, agent, state, g = _train_setup(name, g1_path, clip_path, seed=seed,
+                                            num_envs=num_envs, overrides=overrides)
+        n, a = int(state[2].shape[0]), agent.cfg
+        if a.disc_mode != "none" or not env.kernel or env.dr.enabled:
+            raise AssertionError(f"{label} must train plain PPO through the main variant")
+        if label == "ppo256" and n != 256:
+            raise AssertionError(f"config ppo256 has {n} envs")
+        disc = [k for k, _ in state[0].params.named_parameters() if k.startswith("disc")]
+        if disc:
+            raise AssertionError(f"{label}: disc parameters {disc}")
+        log(f"[phase 13] {label}: config {name} {' '.join(overrides)} num_envs={n} "
+            f"actor={a.actor_net} mixed_precision={a.mixed_precision} "
+            f"task_reward_weight={a.task_reward_weight}")
+        rate, launches, info, _, _ = _mode_iters(agent, state, g, f"phase 13 {label}")
+        disc_keys = {k for k in info if k.startswith("disc_")}
+        if disc_keys != {"disc_reward_mean", "disc_reward_std"} or any(
+                info[k].item() != 0.0 for k in disc_keys):
+            raise AssertionError(f"{label}: disc infos {disc_keys}")
+        if info["task_reward_mean"].item() == 0.0:
+            raise AssertionError(f"{label}: task_reward_mean is 0")
+        log(f"[phase 13] {label} train env-steps/s (median of {MODE_TIMED}): {rate:.1f}; "
+            f"{launches} launches ({launches // (1 + MODE_TIMED)} per iteration)")
+        out[label] = rate
+
+    env, agent, state, g = _train_setup(
+        "train", g1_path, clip_path, seed=64,
+        overrides=("agent.optimizer=sgd", "agent.actor_std_type=variable"))
+    a = agent.cfg
+    if not isinstance(state[0].opt_state, SGDState) or a.actor_std_type != "variable":
+        raise AssertionError("sgd + variable: the agent has no SGD state or no logstd head")
+    head = [p.detach().clone() for p in state[0].params.actor_logstd_head.parameters()]
+    log(f"[phase 13] sgd + variable std: num_envs={NUM_ENVS} optimizer={a.optimizer} "
+        f"momentum={a.momentum} actor_std_type={a.actor_std_type}")
+    rate, launches, info, _, _ = _mode_iters(agent, state, g, "phase 13 sgd+variable")
+    if not any(bool(t.abs().max() > 0) for t in state[0].opt_state.trace):
+        raise AssertionError("sgd + variable: every SGD trace is zero")
+    if not _changed(head, state[0].params.actor_logstd_head.parameters()):
+        raise AssertionError("sgd + variable: the logstd head did not change")
+    logstd = state[0].params.actor_logstd_head.bias
+    log(f"[phase 13] sgd + variable train env-steps/s (median of {MODE_TIMED}): {rate:.1f}; "
+        f"{launches} launches; logstd head bias {logstd.min().item():.5f}.."
+        f"{logstd.max().item():.5f}")
+    out["sgd_variable"] = rate
+    return out
+
+
 def _card_line():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1059,6 +1217,8 @@ def main() -> int:
     worst_sharded, shard_times = phase_sharded(g1_path)
     cli = phase_cli(g1_path, clip_path)
     two = phase_two_ranks(g1_path, clip_path)
+    amp = phase_train_amp(g1_path, clip_path)
+    ppo = phase_train_ppo(g1_path, clip_path)
 
     entries = []
     for name, key, launches, errs, replaces in (
@@ -1112,6 +1272,10 @@ def main() -> int:
         "sharded_bound_ms": {str(n): t[2] for n, t in shard_times.items()},
         "cli_env_steps_per_s": [cli["rate_iter2"], cli["rate_iter3"]],
         "two_ranks_one_card_env_steps_per_s": two["rate"],
+        "amp_train_env_steps_per_s": amp["rate"], "amp_train_split_ms": amp["split"],
+        "amp_train_iter_ms": amp["total_ms"], "amp_train_peak_device_bytes": amp["peak_bytes"],
+        "ppo256_train_env_steps_per_s": ppo["ppo256"], "ppo_train_env_steps_per_s": ppo["ppo"],
+        "sgd_variable_train_env_steps_per_s": ppo["sgd_variable"],
         "smoke_seconds": time.perf_counter() - T_START,
         "num_envs": NUM_ENVS, "steps_per_iter": STEPS,
     }))

@@ -8,7 +8,9 @@ Run on a machine with an NVIDIA GPU and no JAX from the repository root:
 nothing of JAX.  Tolerances are ``physics.testing.step_tolerances()`` for
 one step, and rtol = atol = 1e-3 for a 4-step rollout.  The per-env
 (domain-randomization) variant is held to the plain step the same way, and
-a small ``train_iter`` on the ``dr_pod`` config runs through it.  Both
+a small ``train_iter`` on the ``dr_pod`` config runs through it; so do
+one of AMP (``agent=amp_g1``) and one of plain PPO (``agent=ppo_g1``),
+each held to the plain step within the ``dr_pod`` case's tolerances.  Both
 variants with the held narrowphase rows (the G1-shaped fixture with its
 geom tables) are held to the plain step too, and two ``compute_np_ext``
 calls on the same input must give the same bits.  The sharded step
@@ -341,6 +343,46 @@ def test_dr_train_iter_through_kernel_matches_plain_step(paths):
         torch.cuda.synchronize()
         assert cs.cuda_step.dr_launches - before == (steps if kernel == "on" else 0)
         assert all(bool(torch.isfinite(v).all()) for v in info.values())
+        infos.append(info)
+    for k in infos[0]:
+        torch.testing.assert_close(infos[0][k], infos[1][k], rtol=1e-2, atol=1e-2,
+                                   msg=lambda m: f"{k}: {m}")
+
+
+@pytest.mark.parametrize("mode", ["amp", "none"])
+def test_mode_train_iter_through_kernel_matches_plain_step(paths, mode):
+    """One f32 ``train_iter`` of AMP (``agent=amp_g1``) and of plain PPO
+    (``agent=ppo_g1``) at 64 envs x 4 steps through the main kernel and
+    through the plain step, on the same draws, demo windows and minibatch
+    permutations: every info value within rtol = atol = 1e-2, as the
+    ``dr_pod`` case."""
+    n, steps = 64, 4
+    infos = []
+    for kernel in ("on", "off"):
+        cfg = load_config("train", [f"agent={dict(amp='amp_g1', none='ppo_g1')[mode]}"])
+        cfg["robot"]["asset_path"] = paths["g1"]
+        cfg["task"]["motion_file"] = paths["clip"]
+        cfg["engine"]["num_envs"] = n
+        cfg["engine"]["kernel"] = kernel
+        cfg["agent"]["steps_per_iter"] = steps
+        for k in ("actor_net", "critic_net", "disc_net"):
+            cfg["agent"][k] = "fc_2layers_64units"
+        env = build_env(cfg, device="cuda")
+        agent = build_agent(cfg, env)
+        assert agent.cfg.disc_mode == mode and not agent.cfg.mixed_precision
+        ts = agent.init_train_state()
+        g = torch.Generator(device="cuda").manual_seed(3)
+        es = env.reset_where(env.init_state(n), torch.ones(n, dtype=torch.bool, device="cuda"),
+                             ts.sampler, generator=g)
+        g.manual_seed(4)
+        draws = agent.sample_rollout_draws(ts, n, steps, g)
+        g.manual_seed(5)                    # the same demo windows and permutations
+        before = cs.cuda_step.launches
+        info = agent.train_iter(ts, es, env.compute_obs(es), generator=g, draws=draws)[3]
+        torch.cuda.synchronize()
+        assert cs.cuda_step.launches - before == (steps if kernel == "on" else 0)
+        assert all(bool(torch.isfinite(v).all()) for v in info.values())
+        assert ("disc_loss" in info) == (mode == "amp")
         infos.append(info)
     for k in infos[0]:
         torch.testing.assert_close(infos[0][k], infos[1][k], rtol=1e-2, atol=1e-2,

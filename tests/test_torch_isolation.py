@@ -37,8 +37,13 @@ def test_port_imports_no_jax():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["modules"] >= 47, out
     # the data-parallel bootstrap, the trainer and the CLI are walked too
+    # ... and the agent modes' modules (the learned std, the conv trunk, the
+    # categorical head, SGD, the JAX-state conversion)
     for name in ("add_gym_torch.parallel.mesh", "add_gym_torch.cli.train",
                  "add_gym_torch.learning.runner", "add_gym_torch.utils.logger",
-                 "add_gym_torch.utils.remote"):
+                 "add_gym_torch.utils.remote", "add_gym_torch.learning.add_agent",
+                 "add_gym_torch.learning.networks", "add_gym_torch.learning.distributions",
+                 "add_gym_torch.learning.optim", "add_gym_torch.learning.normalizer",
+                 "add_gym_torch.learning.convert", "add_gym_torch.envs.imitation"):
         assert name in out["names"], name
     assert out["bad"] == [], f"the port imported {out['bad']}"

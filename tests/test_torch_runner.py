@@ -7,7 +7,14 @@
   a non-finite loss writes a post-mortem into ``crash/`` and raises; a
   checkpoint saved under ``optimizer: adam`` loads under ``fused_adam``
   and back (one Adam state in the port; the counterpart of
-  tests/test_ckpt_migration.py).
+  tests/test_ckpt_migration.py); one saved under ``sgd`` does not load
+  under ``adam``, nor the other way round; an ``amp``, a ``none`` and an
+  ``sgd`` Trainer save and resume bit for bit.
+* Every top-level config of the port composes (the counterpart of
+  tests/test_configs.py::test_config_composes).
+* ``debug.nans``: a NaN in the obs raises ``FloatingPointError`` naming the
+  phase and the tensor; a clean run with the flag on is bitwise the run
+  with it off.
 * ``episode_stats`` equals the JAX package's exactly on numpy-seeded
   rewards and dones.
 * ``ADDAgent.eval_rollout`` (the rich rollout with ``train=False``)
@@ -22,8 +29,9 @@
   state untouched (the counterparts of tests/test_runner_eval.py, which
   needs the G1 assets).
 * ``cli.train.main`` with ``device=cpu`` in ``mode=train`` (auto-resume
-  included) and ``mode=test``; ``video_interval`` and ``debug.nans``
-  raise ``NotImplementedError``.
+  included) and with config ``test``; ``video_interval`` raises
+  ``NotImplementedError``, and ``debug.nans`` raises
+  ``FloatingPointError`` on a NaN that gets into a run.
 """
 
 import dataclasses
@@ -40,8 +48,9 @@ from add_gym_tpu.builder import build_agent as jax_build_agent
 from add_gym_tpu.builder import build_env as jax_build_env
 from add_gym_tpu.learning.runner import episode_stats as jax_episode_stats
 from add_gym_tpu.utils.config import load_config as jax_load_config
-from add_gym_torch.builder import build_agent, build_env
+from add_gym_torch.builder import _use_kernel, build_agent, build_env
 from add_gym_torch.cli.train import main as cli_main
+from add_gym_torch.envs.imitation import ImitationEnv
 from add_gym_torch.learning.add_agent import state_digest
 from add_gym_torch.learning.convert import from_jax
 from add_gym_torch.learning.runner import CKPT_FILE, Trainer, episode_stats
@@ -134,6 +143,113 @@ def test_checkpoint_loads_under_the_other_adam(files, tmp_path, save_opt, load_o
     t2.train(max_iters=2)                               # and training goes on
     assert int(t2.ts.opt_state.count) == 4
     t1.close(), t2.close()
+
+
+@pytest.mark.parametrize("mode", ["amp", "none", "sgd"])
+def test_mode_checkpoint_resume_is_bitwise(files, tmp_path, mode):
+    cfg = _cfg(files, tmp_path)
+    if mode == "sgd":
+        cfg["agent"]["optimizer"] = "sgd"
+    else:
+        cfg["agent"]["disc_mode"] = mode
+    t1 = Trainer(cfg)
+    t1.train(max_iters=2)
+    t2 = Trainer(cfg)
+    assert t2.iter == 2
+    _assert_state_equal(t2.ts, t1.ts)
+    assert type(t2.ts.disc_norm) is type(t1.ts.disc_norm)
+    assert type(t2.ts.opt_state) is type(t1.ts.opt_state)
+    t2.train(max_iters=3)                               # and training goes on
+    assert t2.iter == 3 and int(t2.ts.sample_count) == 3 * T * N
+    t1.close(), t2.close()
+
+
+@pytest.mark.parametrize("save_opt,load_opt", [("sgd", "adam"), ("fused_adam", "sgd")])
+def test_checkpoint_across_optimizer_families_raises(files, tmp_path, save_opt, load_opt):
+    cfg = _cfg(files, tmp_path)
+    cfg["agent"]["optimizer"] = save_opt
+    Trainer(cfg).train(max_iters=1)
+    cfg["agent"]["optimizer"] = load_opt
+    with pytest.raises(ValueError, match=f"does not match the configured optimizer '{load_opt}'"):
+        Trainer(cfg)
+
+
+@pytest.mark.parametrize("entry", ["build_env", "Trainer", "cli.train"])
+def test_entry_points_default_to_the_card(files, tmp_path, entry):
+    """Without ``device=cpu`` each entry point runs on the card: where
+    there is none it raises, and nothing falls back to the CPU."""
+    cfg = _cfg(files, tmp_path)
+    del cfg["device"]
+
+    def run():
+        if entry == "build_env":
+            return build_env(cfg).device
+        if entry == "Trainer":
+            return Trainer(cfg).device
+        cli_main([a for a in _cli_args(files, tmp_path) if a != "device=cpu"] + ["max_iters=1"])
+        return torch.device("cuda")
+
+    if torch.cuda.is_available():
+        assert run().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run()
+
+
+# --------------------------------------------------------------- configs
+
+
+@pytest.mark.parametrize("name", ["train", "dr_pod", "multihost", "ppo256", "test", "add4096",
+                                  "parity_cpu4"])
+def test_config_composes(name):
+    cfg = load_config(name)
+    for group in ("task", "engine", "agent", "robot"):
+        assert group in cfg, group
+    assert int(cfg["engine"]["num_envs"]) > 0 and cfg["agent"].get("actor_net")
+    assert cfg["task"].get("motion_file")
+    agent = cfg["agent"]
+    assert agent.get("disc_mode", "add") in ("add", "amp", "none")
+    want = dict(ppo256=("none", 256, "train"), test=("add", 32, "test"),
+                add4096=("add", 4096, "train"), parity_cpu4=("add", 4, "train"))
+    if name in want:
+        assert (agent.get("disc_mode", "add"), cfg["engine"]["num_envs"], cfg["mode"]) == want[name]
+    fused = bool(cfg["engine"].get("fused", True))
+    if name == "parity_cpu4":
+        assert cfg["device"] == "cpu" and not fused
+        assert cfg["engine"]["kernel"] == "off"
+        assert not _use_kernel(cfg["engine"]["kernel"], torch.device("cpu"), fused)
+    else:                       # the kernel on the card
+        assert _use_kernel(cfg["engine"].get("kernel", "auto"), torch.device("cuda"), fused)
+    if name == "ppo256":
+        assert agent["task_reward_weight"] == 1.0 and "disc_net" not in agent
+
+
+@pytest.mark.parametrize("group", ["amp_g1", "ppo_g1"])
+def test_agent_group_matches_jax(group):
+    assert load_config("train", [f"agent={group}"])["agent"] == \
+        jax_load_config("train", [f"agent={group}"])["agent"]
+
+
+# ------------------------------------------------------------- debug.nans
+
+
+def test_debug_nans_names_the_phase(files, tmp_path):
+    t = Trainer(_cfg(files, tmp_path, debug=dict(nans=True)))
+    t.obs = t.obs.clone()
+    t.obs[1, 3] = float("nan")
+    with pytest.raises(FloatingPointError, match=r"debug.nans: .* rollout output 'norm_obs'"):
+        t.train(max_iters=1)
+    t.close()
+
+
+def test_debug_nans_clean_run_is_bitwise(files, tmp_path):
+    digests = []
+    for nans in (False, True):
+        t = Trainer(_cfg(files, tmp_path / str(nans), debug=dict(nans=nans)))
+        t.train(max_iters=2)
+        digests.append(state_digest(t.ts))
+        t.close()
+    assert digests[0] == digests[1]
 
 
 # ------------------------------------------------------------ evaluation
@@ -304,12 +420,26 @@ def test_cli_train_resume_and_test(files, tmp_path):
     assert all(np.isfinite(r["loss"]) and r["test_num_eps"] >= 2 for r in rows)
     log = (exp / "log.txt").read_text().splitlines()
     assert len(log) == 2 + 3 and log[0].split()[0] == "samples"     # a header per run
-    info = cli_main(args + ["mode=test", f"checkpoint={exp / 'checkpoint'}"])
+    # config test (mode test): the checkpoint's greedy policy
+    info = cli_main(["test"] + args[1:] + [f"checkpoint={exp / 'checkpoint'}"])
     assert info["num_eps"] >= 2 and np.isfinite(info["mean_return"])
 
 
 @pytest.mark.parametrize("override,match", [("video_interval=1", "video"),
                                             ("debug.nans=true", "debug.nans")])
-def test_unported_options_raise(files, tmp_path, override, match):
-    with pytest.raises(NotImplementedError, match=match):
-        cli_main(_cli_args(files, tmp_path) + ["max_iters=1", override])
+def test_unported_options_raise(files, tmp_path, monkeypatch, override, match):
+    """``video_interval`` is not ported; ``debug.nans`` is, and raises on a
+    NaN that gets into the run (here the first step's obs)."""
+    if override.startswith("video"):
+        with pytest.raises(NotImplementedError, match=match):
+            cli_main(_cli_args(files, tmp_path) + ["max_iters=1", override])
+        return
+    real = ImitationEnv.rollout_step_cached
+
+    def poisoned(self, *a, **kw):
+        state, obs, aux, out = real(self, *a, **kw)
+        return state, torch.full_like(obs, float("nan")), aux, out
+
+    monkeypatch.setattr(ImitationEnv, "rollout_step_cached", poisoned)
+    with pytest.raises(FloatingPointError, match=match):
+        cli_main(_cli_args(files, tmp_path) + ["max_iters=1", "test_episodes=0", override])
