@@ -9,8 +9,10 @@ Public entry points::
 
     from add_gym_torch import load_config, build_env, build_agent
 
-and the training CLI, ``python -m add_gym_torch.cli.train`` (data-parallel
-under ``python -m torch.distributed.run``, ``parallel/mesh.py``).
+the training CLI, ``python -m add_gym_torch.cli.train`` (data-parallel
+under ``python -m torch.distributed.run``, ``parallel/mesh.py``), and the
+tools: ``cli.view`` (clip playback and video), ``cli.probe``,
+``cli.convert_motion`` and ``cli.publish``.
 
 Submodules are imported lazily so that light uses (the config system, the
 model parser) do not pay for the whole package.

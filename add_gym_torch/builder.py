@@ -151,6 +151,7 @@ def build_env(cfg: Dict, device="cuda", dist: Dist | None = None) -> ImitationEn
         device=device,
         dr=dr,
         shard=shard,
+        char=char,
     )
 
 

@@ -138,12 +138,14 @@ class ImitationEnv:
         device="cuda",
         dr: DRConfig = DRConfig(),
         shard: EnvShard | None = None,
+        char=None,
     ):
         if kernel and not fused:
             raise ValueError("the control-step kernel is a fused backend: kernel needs fused=True")
         self.device = resolve_device(device)
         self.shard = shard
         self.model = model
+        self.char = char  # the kinematic CharModel (video recording)
         self.motion = motion
         self.params = engine_params
         self.task = task

@@ -3,9 +3,9 @@
 Counterpart of ``add_gym_tpu/kinematics/char_model.py``.  The parse result
 is a frozen set of host numpy arrays (parents, local transforms, joint
 axes, dof indexing) in breadth-first MJCF order; the conversions between
-dof vectors and joint rotations run on torch tensors of any device.  The
-JAX package's ``forward_kinematics`` and ``export_mjcf`` (viewer and
-retargeting tools) are not ported yet.
+dof vectors and joint rotations and the forward kinematics run on torch
+tensors of any device; :meth:`CharModel.export_mjcf` writes the skeleton
+back out as MJCF text (the same text as the JAX package's).
 
 Joint types: ROOT (free base), HINGE (1 dof) and FIXED; three consecutive
 hinges consolidate into a SPHERICAL joint (3-dof exp-map).
@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import enum
 import xml.etree.ElementTree as ET
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List
 
 import numpy as np
@@ -51,13 +51,38 @@ class CharModel:
     joint_axes: np.ndarray                # [nb, 3] (zeros for non-hinge)
     dof_offsets: np.ndarray               # [nb] start index of body's dofs
     dof_size: int
+    _name_to_idx: dict = field(default_factory=dict)
+
+    # ------------------------------------------------------------------ info
 
     @property
     def num_bodies(self) -> int:
         return len(self.body_names)
 
+    def get_num_joints(self) -> int:
+        return self.num_bodies
+
+    def get_dof_size(self) -> int:
+        return self.dof_size
+
+    def get_body_id(self, name: str) -> int:
+        return self._name_to_idx[name]
+
+    def get_joint_id(self, body_name: str) -> int:
+        # joint arrays exclude the root
+        return self._name_to_idx[body_name] - 1
+
     def get_joint_order(self) -> List[str]:
         return list(self.joint_names)
+
+    def get_parent_id(self, j: int) -> int:
+        return int(self.parent_indices[j])
+
+    def get_joint_dof_dim(self, j: int) -> int:
+        return _DOF_DIMS[JointType(int(self.joint_types[j]))]
+
+    def get_joint_dof_idx(self, j: int) -> int:
+        return int(self.dof_offsets[j])
 
     def local_rotation_wxyz(self) -> np.ndarray:
         q = self.local_rotation
@@ -140,6 +165,110 @@ class CharModel:
         """Per-frame dof velocities along axis 0, last frame repeated."""
         dof_vel = self.compute_dof_vel(joint_rot[:-1], joint_rot[1:], dt)
         return torch.cat([dof_vel, dof_vel[-1:]], dim=0)
+
+    def forward_kinematics(self, root_pos, root_rot, joint_rot):
+        """Batched FK: world position and orientation of every body, on
+        the inputs' device.
+
+        Args:
+          root_pos:  [..., 3] world root position.
+          root_rot:  [..., 4] wxyz world root orientation.
+          joint_rot: [..., nb-1, 4] local joint rotations (from dof_to_rot).
+
+        Returns:
+          body_pos [..., nb, 3], body_rot [..., nb, 4] (wxyz).
+        """
+        local_t = self._const(self.local_translation, root_pos)
+        local_q = self._const(self.local_rotation_wxyz(), root_pos)
+
+        pos = [root_pos]
+        quat = [root_rot]
+        for j in range(1, self.num_bodies):
+            p = int(self.parent_indices[j])
+            body_q = rot.quat_mul(local_q[j], joint_rot[..., j - 1, :])
+            pos.append(pos[p] + rot.quat_rotate(quat[p], local_t[j]))
+            quat.append(rot.quat_mul(quat[p], body_q))
+        return torch.stack(pos, dim=-2), torch.stack(quat, dim=-2)
+
+    # ------------------------------------------------------------- MJCF export
+
+    def export_mjcf(self, output_file: str) -> None:
+        """Write the skeleton as a standalone MJCF file: the body tree with
+        hinge joints (a spherical joint expands to three orthogonal hinges)
+        and a capsule geom toward each child body; it loads back through
+        :func:`load_char_model` with the same BFS structure."""
+        children: dict = {i: [] for i in range(self.num_bodies)}
+        for i in range(1, self.num_bodies):
+            children[int(self.parent_indices[i])].append(i)
+
+        def geom_xml(i: int, indent: str) -> str:
+            parts = []
+            for c in children[i]:
+                t = self.local_translation[c]
+                if float(np.linalg.norm(t)) < 1e-6:
+                    continue
+                parts.append(
+                    f'{indent}<geom type="capsule" fromto="0 0 0 '
+                    f'{t[0]:.4f} {t[1]:.4f} {t[2]:.4f}" size="0.02" '
+                    f'contype="0" conaffinity="0"/>'
+                )
+            if not parts:
+                parts.append(
+                    f'{indent}<geom type="sphere" size="0.02" contype="0" '
+                    f'conaffinity="0"/>'
+                )
+            return "\n".join(parts)
+
+        def joint_xml(i: int, indent: str) -> str:
+            jt = JointType(int(self.joint_types[i]))
+            name = self.joint_names[i]
+            if jt == JointType.HINGE:
+                ax = self.joint_axes[i]
+                return (
+                    f'{indent}<joint name="{name}" type="hinge" '
+                    f'axis="{ax[0]:.4f} {ax[1]:.4f} {ax[2]:.4f}" '
+                    f'range="-3.14 3.14"/>'
+                )
+            if jt == JointType.SPHERICAL:
+                return "\n".join(
+                    f'{indent}<joint name="{name}_{suffix}" type="hinge" '
+                    f'axis="{ax}" range="-3.14 3.14"/>'
+                    for suffix, ax in (("x", "1 0 0"), ("y", "0 1 0"), ("z", "0 0 1"))
+                )
+            return ""  # ROOT (free) / FIXED
+
+        def body_xml(i: int, depth: int) -> str:
+            ind = "    " * depth
+            t = self.local_translation[i]
+            qx = self.local_rotation[i]  # xyzw
+            quat = f"{qx[3]:.6f} {qx[0]:.6f} {qx[1]:.6f} {qx[2]:.6f}"
+            lines = [
+                f'{ind}<body name="{self.body_names[i]}" '
+                f'pos="{t[0]:.4f} {t[1]:.4f} {t[2]:.4f}" quat="{quat}">'
+            ]
+            inner = "    " * (depth + 1)
+            if i == 0:
+                lines.append(f'{inner}<freejoint name="root"/>')
+            j = joint_xml(i, inner)
+            if j:
+                lines.append(j)
+            lines.append(
+                f'{inner}<inertial pos="0 0 0" mass="1.0" '
+                f'diaginertia="0.01 0.01 0.01"/>'
+            )
+            lines.append(geom_xml(i, inner))
+            for c in children[i]:
+                lines.append(body_xml(c, depth + 1))
+            lines.append(f"{ind}</body>")
+            return "\n".join(lines)
+
+        xml = (
+            '<mujoco model="character">\n  <worldbody>\n'
+            + body_xml(0, 2)
+            + "\n  </worldbody>\n</mujoco>\n"
+        )
+        with open(output_file, "w") as f:
+            f.write(xml)
 
 
 # -------------------------------------------------------------------- parse
@@ -225,4 +354,5 @@ def load_char_model(char_file: str) -> CharModel:
         joint_axes=np.asarray(joint_axes, dtype=np.float32),
         dof_offsets=dof_offsets,
         dof_size=dof_idx,
+        _name_to_idx={n: i for i, n in enumerate(body_names)},
     )

@@ -3,8 +3,8 @@ and plain-PPO agents.
 
 Counterpart of ``add_gym_tpu/learning/add_agent.py``: ``AgentConfig``,
 ``TrainState`` (with the optimizer's state), network and normalizer init,
-the evaluation rollout (``rollout``, ``eval_rollout``) and one training
-iteration, ``train_iter``:
+the evaluation rollouts (``rollout``, ``eval_rollout`` and the video's
+``eval_rollout_states``) and one training iteration, ``train_iter``:
 
 1. ``rollout_lean``: the train rollout (bf16 actor under mixed precision,
    presampled action noise, reset and domain-randomization draws);
@@ -446,20 +446,14 @@ class ADDAgent:
         traj = {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
         return env_state, obs, traj, (count, s1, s2)
 
-    @torch.no_grad()
-    def rollout(self, ts: TrainState, env_state: EnvState, obs, num_steps: int,
-                train: bool = True, generator: torch.Generator | None = None, draws=None):
-        """The rich rollout: ``num_steps`` of action, ``env.rollout_step``
-        (step, masked reset, obs), recording raw obs, actions and the
-        step's outputs.  ``train=False`` acts with the actor's mean (the
-        evaluation policy).  ``draws = (noise, bern, ids, times[, dr])``,
-        each [T, ...] (``dr`` a dict of [T, N]; ``noise`` and ``bern``
-        unread without ``train``), replaces the random draws.  Returns
-        ``(env_state, obs, traj)`` with traj tensors [T, N, ...].
-        """
+    def _rollout_steps(self, ts: TrainState, env_state: EnvState, obs, num_steps: int,
+                       train: bool, generator, draws):
+        """The steps of the rich rollout, one at a time: yields
+        ``(env_state, obs_after, step)`` with ``step`` the step's record
+        (its obs, action, log-prob, exploration mask and the outputs of
+        ``env.rollout_step``)."""
         env = self.env
         exp_prob = self._exp_prob(ts.sample_count) if train else None
-        steps = []
         for t in range(num_steps):
             noise = bern = step_draws = None
             if draws is not None:
@@ -474,8 +468,25 @@ class ADDAgent:
                 ts.params, ts.obs_norm, obs, train, exp_prob, noise, bern, generator)
             env_state, obs_after, out = env.rollout_step(
                 env_state, action, ts.sampler, generator, draws=step_draws)
-            steps.append(dict(obs=obs, action=action, a_logp=a_logp, rand_mask=rand_mask, **out))
+            yield env_state, obs_after, dict(obs=obs, action=action, a_logp=a_logp,
+                                             rand_mask=rand_mask, **out)
             obs = obs_after
+
+    @torch.no_grad()
+    def rollout(self, ts: TrainState, env_state: EnvState, obs, num_steps: int,
+                train: bool = True, generator: torch.Generator | None = None, draws=None):
+        """The rich rollout: ``num_steps`` of action, ``env.rollout_step``
+        (step, masked reset, obs), recording raw obs, actions and the
+        step's outputs.  ``train=False`` acts with the actor's mean (the
+        evaluation policy).  ``draws = (noise, bern, ids, times[, dr])``,
+        each [T, ...] (``dr`` a dict of [T, N]; ``noise`` and ``bern``
+        unread without ``train``), replaces the random draws.  Returns
+        ``(env_state, obs, traj)`` with traj tensors [T, N, ...].
+        """
+        steps = []
+        for env_state, obs, step in self._rollout_steps(ts, env_state, obs, num_steps, train,
+                                                         generator, draws):
+            steps.append(step)
         traj = {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
         return env_state, obs, traj
 
@@ -487,6 +498,31 @@ class ADDAgent:
         env_state, obs, traj = self.rollout(ts, env_state, obs, num_steps, train=False,
                                             generator=generator, draws=draws)
         return env_state, obs, traj["reward"], traj["done"]
+
+    @torch.no_grad()
+    def eval_rollout_states(self, ts: TrainState, env_state: EnvState, obs, num_steps: int,
+                            generator: torch.Generator | None = None, draws=None):
+        """Deterministic (mean action) rollout recording env 0's trajectory,
+        for the videos (``learning.runner.Trainer.record_video``).
+
+        Each step is the evaluation rollout's (:meth:`rollout` with
+        ``train=False``: one control step through the env's backend, the
+        masked reset and the obs); the state is taken after the reset, so
+        a reset of env 0 shows as a jump.  ``draws`` as in :meth:`rollout`.
+        Returns ``(env_state, obs, states)`` with ``states`` a dict of
+        [T, ...] tensors: ``root_pos``, ``root_quat``, ``dof_pos``, and the
+        reference motion's ``motion_id`` and ``motion_time`` (for the
+        ghost).
+        """
+        rec = []
+        for env_state, obs, _ in self._rollout_steps(ts, env_state, obs, num_steps, False,
+                                                      generator, draws):
+            sim = env_state.sim
+            rec.append(dict(root_pos=sim.root_pos[0], root_quat=sim.root_quat[0],
+                            dof_pos=sim.dof_pos[0], motion_id=env_state.motion_ids[0],
+                            motion_time=self.env.motion_times(env_state)[0]))
+        states = {k: torch.stack([r[k] for r in rec]) for k in rec[0]}
+        return env_state, obs, states
 
     # ---------------------------------------------------------- train data
 

@@ -15,6 +15,11 @@ the learner's state identical across ranks.  Every rank calls
 evaluation runs the same number of chunks on every rank and reduces its
 episode sums.
 
+``video_interval: k`` records a video every k-th output iteration
+(:meth:`Trainer.record_video`): every rank rolls its envs forward the same
+number of steps through the env's backend, and rank 0 writes env 0's
+poses (``<path>.npz``) and renders them.
+
 ``debug.nans: true`` (the closest counterpart of the JAX package's
 ``jax_debug_nans``) checks every floating output of each phase of every
 ``train_iter`` (the rollout's trajectory and next obs, the train data, the
@@ -43,8 +48,6 @@ from add_gym_torch.utils.device import resolve_device
 from add_gym_torch.utils.logger import TrainLogger
 
 CKPT_FILE = "train_state.pt"
-VIDEO_QUEUED = ("record_video / video_interval is not ported yet (it needs the viewer "
-                "tools, ROADMAP queue 1, item 6)")
 
 
 def _opt_family(name: str) -> str:
@@ -100,8 +103,6 @@ class Trainer:
     ``cuda``)."""
 
     def __init__(self, cfg: Dict, dist: Dist | None = None, device=None):
-        if int(cfg.get("video_interval", 0) or 0) > 0:
-            raise NotImplementedError(VIDEO_QUEUED)
         self.cfg = cfg
         if dist is None:
             dist = Dist(device=resolve_device(device or cfg.get("device", "cuda")))
@@ -122,6 +123,7 @@ class Trainer:
         self.test_episodes = int(run_key("test_episodes", 10))
         self.max_samples = int(run_key("max_samples", 10**14))
         self.debug_nans = bool((cfg.get("debug", {}) or {}).get("nans", False))
+        self.video_interval = int(cfg.get("video_interval", 0) or 0)
         self.exp_dir = os.path.join(cfg.get("log_dir", "logs/"), cfg.get("experiment_name", "exp"))
         self.logger = TrainLogger(self.exp_dir, is_main=dist.is_main)
         self.iter = 0
@@ -282,6 +284,10 @@ class Trainer:
             if output_iter:
                 self.save(numbered=bool(self.cfg.get("save_intermediate", False)))
                 self.logger.log_sampler_image(self.ts.sampler.errors.cpu().numpy(), sample_count)
+                outputs = self.iter // self.iters_per_output
+                if self.video_interval and outputs % self.video_interval == 0:
+                    # every rank rolls forward; rank 0 writes
+                    self.record_video(os.path.join(self.exp_dir, f"rollout_{self.iter:07d}.gif"))
             self.iter += 1
         if prof is not None:
             self._stop_profile(prof, prof_cfg)
@@ -303,8 +309,72 @@ class Trainer:
         os.makedirs(out, exist_ok=True)
         prof.export_chrome_trace(os.path.join(out, f"trace_rank{self.dist.rank}.json"))
 
+    # ----------------------------------------------------------------- video
+
     def record_video(self, path: str, seconds: float = 4.0):
-        raise NotImplementedError(VIDEO_QUEUED)
+        """Mean-action rollout of env 0 -> pose dump ``path + ".npz"`` and a
+        mesh video at ``path`` (GIF through PIL, MP4 through imageio).
+
+        Every rank runs ``int(seconds / ctrl_dt)`` steps of
+        ``ADDAgent.eval_rollout_states`` and keeps the advanced env state,
+        so the ranks stay in step.  Rank 0 then runs the forward kinematics
+        of the agent and of the ghost (the reference motion at the recorded
+        ids and times) on its device and writes the npz (``body_pos``,
+        ``body_rot``, ``ghost_body_pos``, ``ghost_body_rot``,
+        ``body_names``, ``parents``: the JAX package's keys).  The mesh
+        model is read from the MJCF the env was built from
+        (``robot.asset_path``).  A failed render prints and falls back to
+        the stick figure (``cli.view.render_video``); a failed fallback
+        prints too: rendering never stops training, and the npz is the
+        contract.
+
+        Returns, on rank 0, ``{"frames", "rollout_ms", "render_ms_per_frame"}``
+        (the last None where no video was written); None on other ranks.
+        """
+        steps = int(seconds / self.env.ctrl_dt)
+        t0 = time.perf_counter()
+        self.es, self.obs, states = self.agent.eval_rollout_states(
+            self.ts, self.es, self.obs, steps, generator=self.generator)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        rollout_ms = 1e3 * (time.perf_counter() - t0)
+        if not self.dist.is_main:
+            return None
+        char = self.env.char
+        body_pos, body_rot = char.forward_kinematics(
+            states["root_pos"], states["root_quat"], char.dof_to_rot(states["dof_pos"]))
+        rp, rq, _, _, dp, _ = self.env.motion.get_motion_step(states["motion_id"],
+                                                              states["motion_time"])
+        ghost_pos, ghost_rot = char.forward_kinematics(rp, rq, char.dof_to_rot(dp))
+        poses = {k: v.cpu().numpy() for k, v in dict(
+            body_pos=body_pos, body_rot=body_rot, ghost_body_pos=ghost_pos,
+            ghost_body_rot=ghost_rot).items()}
+        np.savez_compressed(path + ".npz", **poses, body_names=np.asarray(char.body_names),
+                            parents=char.parent_indices)
+        fps = 1.0 / self.env.ctrl_dt
+        t0 = time.perf_counter()
+        try:
+            from add_gym_torch.render.mesh import RobotMeshModel, render_frames, save_video
+            from add_gym_torch.utils.assets import asset_path
+
+            robot_cfg = self.cfg.get("robot", {})
+            mm = RobotMeshModel(asset_path(robot_cfg.get("asset_path", "g1_description/g1_29.xml")),
+                                list(char.body_names))
+            frames = render_frames(mm, poses["body_pos"], poses["body_rot"],
+                                   poses["ghost_body_pos"], poses["ghost_body_rot"])
+            save_video(frames, path, fps=fps)
+        except Exception as e:  # rendering must never stop training
+            print(f"mesh render failed ({e!r}); falling back to stick figure")
+            try:
+                from add_gym_torch.cli.view import render_video
+
+                render_video(char, poses["body_pos"], path, fps=fps)
+            except Exception as e2:
+                print(f"video render failed: {e2!r}")
+        render_ms = 1e3 * (time.perf_counter() - t0)
+        written = os.path.exists(path)
+        return dict(frames=steps, rollout_ms=rollout_ms,
+                    render_ms_per_frame=render_ms / max(steps, 1) if written else None)
 
     # ----------------------------------------------------------------- eval
 

@@ -3,7 +3,10 @@
 Counterpart of ``add_gym_tpu/motion/motion_file.py``.  ``.motion`` files
 are CSV text, one frame per line of 36 floats: root pos (3) + root quat
 stored **xyzw** at columns 3-6 + 29 joint angles, 30 fps.  The pickle
-format is ``{"loop_mode": int, "fps": int, "frames": ndarray}``.
+format is ``{"loop_mode": int, "fps": int, "frames": ndarray}``, which
+:meth:`MotionClip.save` writes, so each package reads the other's clips.
+CSV parsing goes through the native loader (``add_gym_torch.native``),
+which falls back to numpy where it cannot be built.
 """
 
 from __future__ import annotations
@@ -32,10 +35,19 @@ class MotionClip:
     def get_length(self) -> float:
         return float(self.frames.shape[0] - 1) / self.fps
 
+    def save(self, out_file: str) -> None:
+        with open(out_file, "wb") as f:
+            pickle.dump(
+                {"loop_mode": int(self.loop_mode), "fps": self.fps, "frames": self.frames},
+                f,
+            )
+
 
 def parse_motion_csv(path: str) -> np.ndarray:
     """Parse a ``.motion`` CSV into a [T, C] float64 array."""
-    return np.atleast_2d(np.loadtxt(path, delimiter=",", dtype=np.float64))
+    from add_gym_torch import native
+
+    return np.atleast_2d(native.parse_motion_csv(path))
 
 
 def load_motion(path: str) -> MotionClip:

@@ -36,6 +36,12 @@ class MotionLib:
     step_all: torch.Tensor
     meta_all: torch.Tensor
 
+    def get_num_motions(self) -> int:
+        return self.num_motions
+
+    def get_total_length(self) -> float:
+        return float(torch.sum(self.lengths))
+
     # --------------------------------------------------------------- lookup
 
     def get_motion_rows(self, motion_ids, motion_times):
@@ -87,11 +93,23 @@ class MotionLib:
         phase = torch.where(self.loop_modes[motion_ids] == int(LoopMode.WRAP), wrapped, phase)
         return torch.clamp(phase, 0.0, 1.0)
 
+    def get_motion_length(self, motion_ids):
+        return self.lengths[motion_ids]
+
+    def get_motion_loop_mode(self, motion_ids):
+        return self.loop_modes[motion_ids]
+
     # ------------------------------------------------------------- sampling
 
     def sample_motions(self, n: int, generator: torch.Generator | None = None):
         """Weighted clip sampling (with replacement)."""
         return torch.multinomial(self.weights, n, replacement=True, generator=generator)
+
+    def sample_time(self, motion_ids, generator: torch.Generator | None = None):
+        """Uniform time in [0, len), quantized down to ``dt``."""
+        phase = torch.rand(motion_ids.shape, generator=generator, device=self.lengths.device)
+        t = phase * self.lengths[motion_ids]
+        return torch.floor(t / self.dt) * self.dt
 
 
 # ------------------------------------------------------------------ loading

@@ -24,7 +24,7 @@ from typing import List
 import numpy as np
 
 from add_gym_torch.kinematics.char_model import CharModel, JointType, load_char_model
-from add_gym_torch.physics.stl import stl_aabb
+from add_gym_torch.native import stl_aabb
 
 
 @dataclass(frozen=True)

@@ -457,12 +457,12 @@ def parse_geoms(mjcf_path: str, body_names, masses,
     articulation-constrained).
 
     ``mesh_as_box`` approximates mesh geoms by their STL AABB as an
-    oriented box (``physics/stl.py``).  ``contype``/``conaffinity`` are read
+    oriented box (``native.stl_aabb``).  ``contype``/``conaffinity`` are read
     from geom attributes only; MJCF ``<default>`` class inheritance is not
     resolved.
     """
     from add_gym_torch.physics.model import _parse_vec, _quat_wxyz_to_mat
-    from add_gym_torch.physics.stl import stl_aabb
+    from add_gym_torch.native import stl_aabb
 
     tree = ET.parse(mjcf_path)
     name_to_idx = {n: i for i, n in enumerate(body_names)}

@@ -13,6 +13,9 @@
   drives the JAX reference and the port at the G1's widths.
 * :func:`write_wide_fixture`: the G1-shaped robot with extra hinged
   links at the wrists (32 bodies at 2 extra: the kernel's most).
+* :func:`write_mesh_fixture`: the G1-shaped robot with one binary-STL box
+  per body as a visual mesh geom (``group="1"``, not collidable), for the
+  renderer: the physics model built from it is the plain fixture's.
 * :func:`write_motion_csv`: a synthetic ``.motion`` clip (36 columns:
   root pos, root quat xyzw at columns 3-6, 29 joint angles; 30 fps) made
   from a numpy seed.
@@ -24,6 +27,8 @@ from __future__ import annotations
 
 import os
 import pickle
+import re
+import struct
 
 import numpy as np
 
@@ -243,6 +248,62 @@ def write_wide_fixture(directory: str, extra: int) -> str:
                 f'<geom type="box" pos="0.03 0 0" size="0.03 0.02 0.01"/></body>\n')
         text = text[:close] + hand + text[close:]
     return _write(os.path.join(directory, f"g1_fixture_plus{extra}.xml"), text)
+
+
+def _box_triangles(half) -> np.ndarray:
+    """The 12 outward-facing triangles [12, 3, 3] of a box of half-size
+    ``half`` centered at the origin."""
+    c = np.array([[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)],
+                 np.float64) * np.asarray(half, np.float64)
+    # corner index = 4*(x>0) + 2*(y>0) + (z>0); two triangles per face
+    quads = [(0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1), (2, 3, 7, 6), (0, 2, 6, 4), (1, 5, 7, 3)]
+    tris = []
+    for a, b, e, d in quads:
+        tris += [c[[a, b, e]], c[[a, e, d]]]
+    return np.stack(tris)
+
+
+def _write_box_stl(path: str, half) -> str:
+    """Write a binary STL box of half-size ``half`` and return its path."""
+    tris = _box_triangles(half).astype(np.float32)
+    normals = np.cross(tris[:, 1] - tris[:, 0], tris[:, 2] - tris[:, 0])
+    normals /= np.linalg.norm(normals, axis=1, keepdims=True)
+    with open(path, "wb") as f:
+        f.write(b"agt box".ljust(80, b"\0"))
+        f.write(struct.pack("<I", len(tris)))
+        for n, t in zip(normals.astype(np.float32), tris):
+            f.write(n.tobytes() + t.tobytes() + b"\0\0")
+    return path
+
+
+def write_mesh_fixture(directory: str) -> str:
+    """Write the G1-shaped MJCF with one visual mesh per body and return
+    its path.
+
+    Each body's collision box is repeated as a ``group="1"`` mesh geom
+    (``contype="0" conaffinity="0"``, so the physics model skips it) whose
+    binary STL box is written next to the MJCF as ``<body>_vis.STL``.
+    """
+    lines, meshes, body = [], [], None
+    for line in g1_fixture_mjcf().splitlines():
+        lines.append(line)
+        m = re.search(r'<body name="([^"]+)"', line)
+        if m:
+            body = m.group(1)
+            continue
+        m = re.search(r'<geom type="box" pos="([^"]+)" size="([^"]+)"/>', line)
+        if m:
+            name = f"{body}_vis"
+            half = [float(x) for x in m.group(2).split()]
+            _write_box_stl(os.path.join(directory, f"{name}.STL"), half)
+            meshes.append(f'    <mesh name="{name}" file="{name}.STL"/>')
+            indent = line[:len(line) - len(line.lstrip())]
+            lines.append(f'{indent}<geom type="mesh" mesh="{name}" pos="{m.group(1)}" group="1" '
+                         f'contype="0" conaffinity="0"/>')
+    text = "\n".join(lines) + "\n"
+    text = text.replace("  <worldbody>", "  <asset>\n" + "\n".join(meshes) + "\n  </asset>\n"
+                        "  <worldbody>", 1)
+    return _write(os.path.join(directory, "g1_mesh_fixture.xml"), text)
 
 
 # a crouched base pose inside every joint range (motion column order)

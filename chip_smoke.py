@@ -103,7 +103,33 @@ Phases (any failure exits non-zero; nothing here catches its own error):
    ``train`` with ``agent.optimizer=sgd agent.actor_std_type=variable`` at
    4096 envs: the SGD traces and the logstd head change, the infos are
    finite.
-14. The kernel line, the card's name and power limit, and the result line.
+14. The video and tools path.  (a) 8 steps of
+   ``ADDAgent.eval_rollout_states`` at 64 envs (f32, small nets) through
+   the kernel and through the plain step from one state with the same
+   reset draws: env 0's states within rtol = atol = 1e-3 (the rollout
+   tolerance of phase 3), and FK of the recorded states on the card within
+   1e-5 of FK on the CPU.  (b) Config ``train`` on the mesh fixture
+   (``testing.write_mesh_fixture``: the G1-shaped robot with an STL box per
+   body as its visual mesh) at 4096 envs through the ``Trainer``:
+   ``record_video(path, seconds=4.0)`` with the launch counts set to 0
+   just before and read just after: exactly 400 main-variant launches, an
+   npz with ``body_pos`` [400, 30, 3] and the ghost's arrays, all finite;
+   the video rollout's ms and the render's ms per frame are logged, and
+   the GIF must exist where PIL imports (without PIL a log line says that
+   the render did not run on the card; the CPU tests hold it).  (c)
+   ``python -m add_gym_torch.cli.view`` on the fixture clip with no
+   ``device=`` (so on the card): its npz's ``body_pos`` within 1e-5 of the
+   CPU FK of the same frames.  (d) ``python -m add_gym_torch.cli.probe``
+   with its input from ``/dev/null``: exit 0 and ``bodies: 30  dofs: 29``.
+   (e) ``python -m add_gym_torch.cli.publish`` on phase 10's checkpoint:
+   ``model.pt`` equals the checkpoint's parameters bit for bit.  (f) The
+   native loader builds with g++ and its CSV and STL readers equal the
+   numpy ones exactly on the fixture clip and STLs.  The three CLIs run as
+   subprocesses started together, alongside (a) and (f), and are waited
+   for before (b), which is timed alone.
+15. The kernel line, the video line (``video_rollout_ms``,
+   ``video_launches``, ``render_ms_per_frame``, ``view_frames``), the
+   card's name and power limit, and the result line.
 
 ``python3 chip_smoke.py --compare-kernel DIR`` runs no phase but this:
 ``DIR`` holds another checkout of the repository (its own
@@ -112,7 +138,7 @@ its kernel into ``DIR/build``); the two kernels' main variants step the
 same 4096-env input in turns (other, this, this, other), and it prints
 each one's ms per launch and the largest difference of their outputs.
 
-Each path (3, 5, 6, 7, 11, 12, 13) is driven with the launch counts set to 0 just
+Each path (3, 5, 6, 7, 11, 12, 13, 14b) is driven with the launch counts set to 0 just
 before it and read just after (phase 11 in each rank's own process).  Each log line starts with the seconds since the
 start; the JSON lines, the card's line and the result line are printed
 bare.  The kernel-vs-plain ``train_iter`` check of ``dr_pod`` is a
@@ -861,7 +887,7 @@ def _run(cmd, where, env=None):
     log(f"[{where}] $ {' '.join(cmd)}")
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                          timeout=SUBPROCESS_TIMEOUT, env=env)
+                          timeout=SUBPROCESS_TIMEOUT, env=env, stdin=subprocess.DEVNULL)
     if proc.returncode != 0:
         raise AssertionError(f"{where}: exit {proc.returncode}\n{proc.stdout[-4000:]}\n"
                              f"{proc.stderr[-4000:]}")
@@ -1127,6 +1153,181 @@ def phase_train_ppo(g1_path, clip_path):
     return out
 
 
+def _start_tool(args, where):
+    """Start ``python -m <args>`` with its input from /dev/null and its
+    output piped; ``_finish_tool`` waits for it."""
+    cmd = [sys.executable, "-m", *args]
+    log(f"[{where}] $ {' '.join(cmd)} (started)")
+    return where, time.perf_counter(), subprocess.Popen(
+        cmd, cwd=ROOT, stdin=subprocess.DEVNULL, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def _finish_tool(started):
+    where, t0, proc = started
+    try:
+        out, err = proc.communicate(timeout=SUBPROCESS_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    if proc.returncode != 0:
+        raise AssertionError(f"{where}: exit {proc.returncode}\n{out[-4000:]}\n{err[-4000:]}")
+    log(f"[{where}] exit 0, {time.perf_counter() - t0:.1f} s after its start")
+    return out
+
+
+def phase_video_small_check(g1_path, clip_path):
+    """8 steps of eval_rollout_states at 64 envs: kernel vs plain step, the
+    same reset draws; FK of the recorded states on the card vs the CPU."""
+    n, steps = 64, 8
+    outs = []
+    for kernel in ("on", "off"):
+        cfg = _slice_cfg(g1_path, clip_path, n, STEPS, mixed=False, kernel=kernel,
+                         net="fc_2layers_64units")
+        env = build_env(cfg, device=DEVICE)
+        agent = build_agent(cfg, env)
+        ts, es, obs = _start(env, agent, n, seed=60)
+        g = torch.Generator(device=DEVICE)
+        g.manual_seed(61)
+        draws = agent.sample_rollout_draws(ts, n, steps, g)
+        outs.append(agent.eval_rollout_states(ts, es, obs, steps, draws=draws)[2])
+    if not torch.equal(outs[0]["motion_id"], outs[1]["motion_id"]):
+        raise AssertionError("phase 14a: kernel and plain recorded other motion ids")
+    worst = 0.0
+    for k in ("root_pos", "root_quat", "dof_pos", "motion_time"):
+        a, b = outs[0][k], outs[1][k]
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3, msg=lambda m: f"{k}: {m}")
+        worst = max(worst, (a - b).abs().max().item())
+    char = env.char
+    st = outs[0]
+    fk = [char.forward_kinematics(st["root_pos"].to(dev), st["root_quat"].to(dev),
+                                  char.dof_to_rot(st["dof_pos"].to(dev)))
+          for dev in (DEVICE, "cpu")]
+    fk_err = 0.0
+    for a, b in zip(*fk):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5)
+        fk_err = max(fk_err, (a.cpu() - b).abs().max().item())
+    log(f"[phase 14a] eval_rollout_states 64 envs x {steps} steps, kernel vs plain max abs diff "
+        f"{worst:.3e} (rtol=atol=1e-3); FK card vs CPU max abs diff {fk_err:.3e} (atol 1e-5)")
+
+
+def phase_native(clip_path, mesh_dir):
+    """The native loader against the numpy readers, exactly."""
+    import glob
+
+    from add_gym_torch import native
+    from add_gym_torch.physics.stl import stl_aabb as np_stl_aabb
+
+    if not native.available():
+        raise AssertionError("phase 14f: the native loader did not build with g++")
+    frames = native.parse_motion_csv(clip_path)
+    if not np.array_equal(frames, np.loadtxt(clip_path, delimiter=",", dtype=np.float64)):
+        raise AssertionError("phase 14f: native CSV parse differs from np.loadtxt")
+    stls = sorted(glob.glob(os.path.join(mesh_dir, "*_vis.STL")))
+    for path in stls:
+        got, want = native.stl_aabb(path), np_stl_aabb(path)
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"phase 14f: native STL AABB of {path} differs: {got} {want}")
+    log(f"[phase 14f] native loader {os.path.relpath(native.library_path(), ROOT)}: CSV "
+        f"{frames.shape} and {len(stls)} STL AABBs equal the numpy readers exactly")
+
+
+def phase_video(mesh_path, g1_path, clip_path):
+    """The video and tools path (phase 14)."""
+    import importlib.util
+
+    from add_gym_torch.kinematics.char_model import load_char_model
+    from add_gym_torch.learning.runner import Trainer
+    from add_gym_torch.motion.motion_lib import load_motion_lib
+
+    out_dir = os.path.join(ROOT, "build", "add_gym_torch", "smoke_video")
+    if os.path.isdir(out_dir):
+        import shutil
+
+        shutil.rmtree(out_dir)
+    os.makedirs(out_dir)
+    view_npz = os.path.join(out_dir, "view.npz")
+    artifact = os.path.join(out_dir, "artifact")
+    ckpt = os.path.join(ROOT, "build", "add_gym_torch", "smoke_logs", "cli", "checkpoint")
+    tools = [
+        _start_tool(["add_gym_torch.cli.view", f"robot.asset_path={g1_path}",
+                     f"task.motion_file={clip_path}", f"out={view_npz}"], "phase 14c"),
+        _start_tool(["add_gym_torch.cli.probe", f"robot.asset_path={g1_path}",
+                     f"task.motion_file={clip_path}"], "phase 14d"),
+        _start_tool(["add_gym_torch.cli.publish", ckpt, artifact, "--name", "smoke"],
+                    "phase 14e"),
+    ]
+    phase_video_small_check(g1_path, clip_path)
+    phase_native(clip_path, os.path.dirname(mesh_path))
+    view_out, probe_out, _ = (_finish_tool(t) for t in tools)
+
+    # (c) the viewer ran on the card; its poses against FK on the CPU
+    char = load_char_model(g1_path)
+    motion = load_motion_lib(clip_path, fx.MOTION_JOINT_ORDER, char, dt=1.0 / 30.0)
+    from add_gym_torch.cli.view import playback_poses
+
+    _, want, _ = playback_poses(char, motion, fps=30.0)
+    got = np.load(view_npz)
+    if "on cuda" not in view_out or got["body_pos"].shape != want.shape:
+        raise AssertionError(f"phase 14c: {view_out[-400:]} {got['body_pos'].shape} {want.shape}")
+    view_err = float(np.abs(got["body_pos"] - want).max())
+    if view_err > 1e-5:
+        raise AssertionError(f"phase 14c: view body_pos differs from CPU FK by {view_err}")
+    log(f"[phase 14c] cli.view on the card: {want.shape[0]} frames, npz keys "
+        f"{sorted(got.files)}, body_pos vs CPU FK max abs diff {view_err:.3e} (atol 1e-5)")
+    # (d) the probe
+    if "bodies: 30  dofs: 29" not in probe_out:
+        raise AssertionError(f"phase 14d: probe printed {probe_out[:400]}")
+    log(f"[phase 14d] cli.probe: {probe_out.splitlines()[0]}")
+    # (e) the published parameters
+    saved = torch.load(os.path.join(ckpt, "train_state.pt"), map_location="cpu",
+                       weights_only=True)["train_state"]["params"]
+    published = torch.load(os.path.join(artifact, "model.pt"), weights_only=True)
+    if published.keys() != saved.keys() or not all(
+            torch.equal(published[k], saved[k]) for k in saved):
+        raise AssertionError("phase 14e: model.pt differs from the checkpoint's parameters")
+    with open(os.path.join(artifact, "metadata.json")) as f:
+        meta = json.load(f)
+    log(f"[phase 14e] cli.publish: model.pt equals the checkpoint's {len(saved)} parameter "
+        f"tensors bit for bit; metadata {meta}")
+
+    # (b) the Trainer's video at full width, timed alone
+    has_pil = importlib.util.find_spec("PIL") is not None
+    log(f"[phase 14b] PIL importable: {has_pil}")
+    cfg = _slice_cfg(mesh_path, clip_path, NUM_ENVS, STEPS)
+    cfg.update(device=DEVICE, log_dir=out_dir, experiment_name="video")
+    trainer = Trainer(cfg)
+    path = os.path.join(out_dir, "rollout.gif")
+    reset_counts()
+    info = trainer.record_video(path, seconds=4.0)
+    counts = (cs.cuda_step.launches, cs.cuda_step.dr_launches, cs.cuda_step.np_launches,
+              cs.sharded_cuda_step.launches)
+    trainer.close()
+    if counts != (400, 0, 0, 0):
+        raise AssertionError(f"phase 14b: {counts} main / per-env / with-rows / sharded "
+                             f"launches for a 4-s video, expected 400 / 0 / 0 / 0")
+    d = np.load(path + ".npz")
+    for k, shape in (("body_pos", (400, 30, 3)), ("body_rot", (400, 30, 4)),
+                     ("ghost_body_pos", (400, 30, 3)), ("ghost_body_rot", (400, 30, 4))):
+        if d[k].shape != shape or not np.isfinite(d[k]).all():
+            raise AssertionError(f"phase 14b: {k} {d[k].shape}, finite {np.isfinite(d[k]).all()}")
+    if has_pil:
+        if not os.path.exists(path) or os.path.getsize(path) == 0:
+            raise AssertionError("phase 14b: PIL imports but no GIF was written")
+        log(f"[phase 14b] GIF {os.path.getsize(path)} bytes; render "
+            f"{info['render_ms_per_frame']:.3f} ms per frame (mesh render + GIF encode, host)")
+    else:
+        log("[phase 14b] no PIL on this machine: the render was not run on the card "
+            "(the CPU tests hold it)")
+    log(f"[phase 14b] record_video at {NUM_ENVS} envs on the mesh fixture: {counts[0]} "
+        f"main-variant launches; video rollout {info['rollout_ms']:.1f} ms "
+        f"({info['rollout_ms'] / 400:.3f} ms per step); npz {sorted(d.files)}")
+    return dict(video_rollout_ms=info["rollout_ms"], video_launches=counts[0],
+                render_ms_per_frame=info["render_ms_per_frame"],
+                view_frames=int(want.shape[0]))
+
+
 def _card_line():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1219,6 +1420,7 @@ def main() -> int:
     two = phase_two_ranks(g1_path, clip_path)
     amp = phase_train_amp(g1_path, clip_path)
     ppo = phase_train_ppo(g1_path, clip_path)
+    video = phase_video(fx.write_mesh_fixture(FIXTURES), g1_path, clip_path)
 
     entries = []
     for name, key, launches, errs, replaces in (
@@ -1279,6 +1481,7 @@ def main() -> int:
         "smoke_seconds": time.perf_counter() - T_START,
         "num_envs": NUM_ENVS, "steps_per_iter": STEPS,
     }))
+    print(json.dumps(video))
     print(_card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

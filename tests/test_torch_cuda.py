@@ -17,6 +17,11 @@ calls on the same input must give the same bits.  The sharded step
 (``sharded_cuda_step``, per-rank launches of the same kernel) concatenated
 over 2 and 4 shards equals the unsharded kernel bit for bit at 4096 envs,
 and a one-rank ``Trainer`` on the card saves and resumes bit for bit.  The
+video path: ``eval_rollout_states`` through the kernel (the main variant,
+and the per-env one under ``dr_pod``) matches the plain step over 8 steps
+at 64 envs within rtol = atol = 1e-3 (the rollout tolerance), FK on the
+card matches FK on the CPU within 1e-5, and a one-rank ``Trainer`` with
+``video_interval=1`` writes its pose dump (400 launches for the 4-s video).  The
 kernel steps each env by one warp: two launches on one input give the same
 bits for every instance; it matches the plain step at N = 1, 37, 4000 and
 4096 (less than a block, ragged, full); and a model of ``AGT_MAX_BODIES``
@@ -52,7 +57,7 @@ def paths(tmp_path_factory):
         pytest.skip("needs a CUDA device")
     d = str(tmp_path_factory.mktemp("cuda"))
     return dict(
-        mini=fx.write_mini_mjcf(d), g1=fx.write_g1_fixture(d),
+        mini=fx.write_mini_mjcf(d), g1=fx.write_g1_fixture(d), mesh=fx.write_mesh_fixture(d),
         clip=fx.write_motion_csv(d + "/clip.motion", seed=0, num_frames=120),
     )
 
@@ -437,3 +442,88 @@ def test_trainer_save_resume_on_card(paths, tmp_path):
     assert t2.ts.params.actor_mean.weight.is_cuda
     assert state_digest(t2.ts) == state_digest(t1.ts)
     t1.close(), t2.close()
+
+
+@pytest.mark.parametrize("config", ["train", "dr_pod"])
+def test_eval_rollout_states_through_kernel_matches_plain_step(paths, config):
+    """8 steps of ``eval_rollout_states`` at 64 envs through the kernel (the
+    main variant; the per-env one under ``dr_pod``) and through the plain
+    step, from one state with the same reset draws: env 0's recorded states
+    within rtol = atol = 1e-3, its motion ids equal."""
+    n, steps = 64, 8
+    outs = []
+    for kernel in ("on", "off"):
+        cfg = load_config(config)
+        cfg["robot"]["asset_path"] = paths["g1"]
+        cfg["task"]["motion_file"] = paths["clip"]
+        cfg["engine"]["num_envs"] = n
+        cfg["engine"]["kernel"] = kernel
+        cfg["agent"]["mixed_precision"] = False
+        for k in ("actor_net", "critic_net", "disc_net"):
+            cfg["agent"][k] = "fc_2layers_64units"
+        env = build_env(cfg, device="cuda")
+        assert env.kernel == (kernel == "on") and env.dr.enabled == (config == "dr_pod")
+        agent = build_agent(cfg, env)
+        ts = agent.init_train_state()
+        g = torch.Generator(device="cuda").manual_seed(1)
+        es = env.reset_where(env.init_state(n), torch.ones(n, dtype=torch.bool, device="cuda"),
+                             ts.sampler, generator=g)
+        draws = agent.sample_rollout_draws(ts, n, steps, g)
+        counter = "dr_launches" if config == "dr_pod" else "launches"
+        before = getattr(cs.cuda_step, counter)
+        _, obs, states = agent.eval_rollout_states(ts, es, env.compute_obs(es), steps, draws=draws)
+        torch.cuda.synchronize()
+        assert getattr(cs.cuda_step, counter) - before == (steps if kernel == "on" else 0)
+        assert torch.isfinite(obs).all() and states["root_pos"].shape == (steps, 3)
+        outs.append(states)
+    assert torch.equal(outs[0]["motion_id"], outs[1]["motion_id"])
+    for k in ("root_pos", "root_quat", "dof_pos", "motion_time"):
+        torch.testing.assert_close(outs[0][k], outs[1][k], rtol=1e-3, atol=1e-3,
+                                   msg=lambda m: f"{k}: {m}")
+
+
+def test_forward_kinematics_on_card_matches_cpu(paths):
+    from add_gym_torch.kinematics.char_model import load_char_model
+
+    char = load_char_model(paths["g1"])
+    rng = np.random.default_rng(12)
+    q = rng.normal(size=(400, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    inputs = (rng.normal(0.0, 0.5, (400, 3)), q, rng.uniform(-1.5, 1.5, (400, char.dof_size)))
+    outs = []
+    for dev in ("cuda", "cpu"):
+        rp, rq, dof = (torch.as_tensor(x, dtype=torch.float32, device=dev) for x in inputs)
+        pos, rot = char.forward_kinematics(rp, rq, char.dof_to_rot(dof))
+        assert pos.device.type == dev
+        outs.append((pos.cpu(), rot.cpu()))
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+def test_trainer_video_interval_on_card(paths, tmp_path):
+    """A one-rank ``Trainer`` on the card with ``video_interval=1``: one
+    iteration at 128 envs writes ``rollout_0000000.gif.npz`` after 4 + 400
+    launches (the iteration's 4 steps, the 4-s video's 400); the GIF where
+    PIL imports."""
+    import importlib.util
+
+    cfg = load_config("train")
+    cfg["robot"]["asset_path"] = paths["mesh"]
+    cfg["task"]["motion_file"] = paths["clip"]
+    cfg["engine"]["num_envs"] = 128
+    cfg["agent"]["steps_per_iter"] = 4
+    for k in ("actor_net", "critic_net", "disc_net"):
+        cfg["agent"][k] = "fc_2layers_64units"
+    cfg.update(device="cuda", test_episodes=0, log_dir=str(tmp_path), experiment_name="video",
+               iters_per_output=1, video_interval=1)
+    t = Trainer(cfg)
+    before = cs.cuda_step.launches
+    t.train(max_iters=1)
+    torch.cuda.synchronize()
+    assert cs.cuda_step.launches - before == 4 + 400
+    d = np.load(tmp_path / "video" / "rollout_0000000.gif.npz")
+    assert d["body_pos"].shape == (400, 30, 3) and d["ghost_body_rot"].shape == (400, 30, 4)
+    assert all(np.isfinite(d[k]).all() for k in ("body_pos", "body_rot", "ghost_body_pos"))
+    if importlib.util.find_spec("PIL") is not None:
+        assert (tmp_path / "video" / "rollout_0000000.gif").stat().st_size > 0
+    t.close()

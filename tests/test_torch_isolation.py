@@ -1,6 +1,8 @@
 """The port stands alone: importing every module of ``add_gym_torch`` (its
-subpackages ``parallel`` and ``cli`` included) and ``chip_smoke`` loads
-neither JAX (nor flax / optax) nor the JAX package.
+subpackages ``parallel``, ``cli``, ``render`` and ``native`` included) and
+``chip_smoke`` loads neither JAX (nor flax / optax) nor the JAX package,
+and every module imports where the optional packages of the tools (PIL,
+imageio, matplotlib, mujoco, IPython, huggingface_hub) are absent.
 
 Runs in a fresh interpreter, since this test process has JAX loaded.
 """
@@ -14,6 +16,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
+OPTIONAL = ("PIL", "imageio", "matplotlib", "mujoco", "IPython", "huggingface_hub")
+for name in OPTIONAL:
+    sys.modules[name] = None          # an import of it raises ImportError
 import add_gym_torch
 names = ["add_gym_torch"] + [
     m.name for m in pkgutil.walk_packages(add_gym_torch.__path__, "add_gym_torch.")
@@ -35,7 +40,7 @@ def test_port_imports_no_jax():
     )
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out["modules"] >= 47, out
+    assert out["modules"] >= 55, out
     # the data-parallel bootstrap, the trainer and the CLI are walked too
     # ... and the agent modes' modules (the learned std, the conv trunk, the
     # categorical head, SGD, the JAX-state conversion)
@@ -44,6 +49,13 @@ def test_port_imports_no_jax():
                  "add_gym_torch.utils.remote", "add_gym_torch.learning.add_agent",
                  "add_gym_torch.learning.networks", "add_gym_torch.learning.distributions",
                  "add_gym_torch.learning.optim", "add_gym_torch.learning.normalizer",
-                 "add_gym_torch.learning.convert", "add_gym_torch.envs.imitation"):
+                 "add_gym_torch.learning.convert", "add_gym_torch.envs.imitation",
+                 # ... and the tools: the viewer, the probe, the converter, the
+                 # publisher, the renderer, the MuJoCo harness, the loader
+                 "add_gym_torch.cli.view", "add_gym_torch.cli.probe",
+                 "add_gym_torch.cli.convert_motion", "add_gym_torch.cli.publish",
+                 "add_gym_torch.render", "add_gym_torch.render.mesh",
+                 "add_gym_torch.physics.mujoco_xval", "add_gym_torch.native",
+                 "add_gym_torch.robot", "add_gym_torch.kinematics.char_model"):
         assert name in out["names"], name
     assert out["bad"] == [], f"the port imported {out['bad']}"

@@ -29,14 +29,19 @@
   state untouched (the counterparts of tests/test_runner_eval.py, which
   needs the G1 assets).
 * ``cli.train.main`` with ``device=cpu`` in ``mode=train`` (auto-resume
-  included) and with config ``test``; ``video_interval`` raises
-  ``NotImplementedError``, and ``debug.nans`` raises
-  ``FloatingPointError`` on a NaN that gets into a run.
+  included) and with config ``test``; ``video_interval`` writes the
+  video's pose dump, and ``debug.nans`` raises ``FloatingPointError`` on a
+  NaN that gets into a run.
+* Without ``device=cpu``, ``build_env``, the ``Trainer`` and the CLIs
+  ``train``, ``view`` and ``probe`` run on the card, and raise without one.
 """
 
+import code
 import dataclasses
+import functools
 import json
 import os
+import sys
 
 import numpy as np
 import jax
@@ -49,7 +54,9 @@ from add_gym_tpu.builder import build_env as jax_build_env
 from add_gym_tpu.learning.runner import episode_stats as jax_episode_stats
 from add_gym_tpu.utils.config import load_config as jax_load_config
 from add_gym_torch.builder import _use_kernel, build_agent, build_env
+from add_gym_torch.cli.probe import main as probe_main
 from add_gym_torch.cli.train import main as cli_main
+from add_gym_torch.cli.view import main as view_main
 from add_gym_torch.envs.imitation import ImitationEnv
 from add_gym_torch.learning.add_agent import state_digest
 from add_gym_torch.learning.convert import from_jax
@@ -174,18 +181,27 @@ def test_checkpoint_across_optimizer_families_raises(files, tmp_path, save_opt, 
         Trainer(cfg)
 
 
-@pytest.mark.parametrize("entry", ["build_env", "Trainer", "cli.train"])
-def test_entry_points_default_to_the_card(files, tmp_path, entry):
+@pytest.mark.parametrize("entry", ["build_env", "Trainer", "cli.train", "cli.view", "cli.probe"])
+def test_entry_points_default_to_the_card(files, tmp_path, entry, monkeypatch):
     """Without ``device=cpu`` each entry point runs on the card: where
     there is none it raises, and nothing falls back to the CPU."""
     cfg = _cfg(files, tmp_path)
     del cfg["device"]
+    tools = [f"robot.asset_path={files[0]}", f"task.motion_file={files[1]}"]
 
     def run():
         if entry == "build_env":
             return build_env(cfg).device
         if entry == "Trainer":
             return Trainer(cfg).device
+        if entry == "cli.view":
+            view_main(tools + [f"out={tmp_path / 'view.npz'}", "max_seconds=0.1"])
+            return torch.device("cuda")
+        if entry == "cli.probe":
+            monkeypatch.setattr(code, "interact", lambda **kw: None)
+            monkeypatch.setitem(sys.modules, "IPython", None)
+            probe_main(tools)
+            return torch.device("cuda")
         cli_main([a for a in _cli_args(files, tmp_path) if a != "device=cpu"] + ["max_iters=1"])
         return torch.device("cuda")
 
@@ -428,11 +444,18 @@ def test_cli_train_resume_and_test(files, tmp_path):
 @pytest.mark.parametrize("override,match", [("video_interval=1", "video"),
                                             ("debug.nans=true", "debug.nans")])
 def test_unported_options_raise(files, tmp_path, monkeypatch, override, match):
-    """``video_interval`` is not ported; ``debug.nans`` is, and raises on a
-    NaN that gets into the run (here the first step's obs)."""
+    """Both options are ported: ``video_interval`` records a video at each
+    output iteration (here a short one: its pose dump is written, and
+    without visual meshes in the fixture the render falls back to the stick
+    figure); ``debug.nans`` raises on a NaN that gets into the run (here the
+    first step's obs)."""
     if override.startswith("video"):
-        with pytest.raises(NotImplementedError, match=match):
-            cli_main(_cli_args(files, tmp_path) + ["max_iters=1", override])
+        monkeypatch.setattr(Trainer, "record_video",
+                            functools.partialmethod(Trainer.record_video, seconds=0.03))
+        cli_main(_cli_args(files, tmp_path) + ["max_iters=1", "test_episodes=0", override])
+        d = np.load(tmp_path / "cli" / "rollout_0000000.gif.npz")
+        assert d["body_pos"].shape == (3, 30, 3) and np.isfinite(d["body_pos"]).all()
+        assert os.path.getsize(tmp_path / "cli" / "rollout_0000000.gif") > 0
         return
     real = ImitationEnv.rollout_step_cached
 
