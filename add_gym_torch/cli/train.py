@@ -8,7 +8,7 @@ Usage (one GPU; ``device=cpu`` runs on the CPU):
 
     python -m add_gym_torch.cli.train engine.num_envs=4096 experiment_name=run1
     python -m add_gym_torch.cli.train test checkpoint=logs/run1/checkpoint
-    python -m add_gym_torch.cli.train dr_pod max_iters=100      # a named config
+    python -m add_gym_torch.cli.train dr_pod engine.num_envs=4096   # one card's share of dr_pod
     python -m add_gym_torch.cli.train train agent=amp_g1       # AMP (ppo_g1: plain PPO)
     python -m add_gym_torch.cli.train ppo256                   # plain PPO, 256 envs
 

@@ -21,6 +21,12 @@
   from a numpy seed.
 * :func:`write_motion_pickle`: the same frames as a pickle clip, which
   carries a loop mode (WRAP clips exist only in that format).
+* :func:`slice_config`: a top-level config on the G1-shaped fixture and a
+  synthetic 300-frame clip, as the bench, the profiler and the smoke run
+  it: the G1's own assets are not in the repository.
+
+Every writer replaces its file in one rename, so processes that write the
+same fixture side by side never read a half-written one.
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ import re
 import struct
 
 import numpy as np
+
+from add_gym_torch.utils.config import load_config
 
 MINI_MJCF = """<mujoco model="mini_biped">
   <compiler angle="radian" />
@@ -216,11 +224,19 @@ def g1_fixture_mjcf() -> str:
 """
 
 
-def _write(path: str, text: str) -> str:
+def _replace(path: str, write) -> str:
+    """``write(f)`` into a temporary file beside ``path``, then rename it
+    over ``path``; returns ``path``."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with open(path, "w") as f:
-        f.write(text)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        write(f)
+    os.replace(tmp, path)
     return path
+
+
+def _write(path: str, text: str) -> str:
+    return _replace(path, lambda f: f.write(text.encode()))
 
 
 def write_mini_mjcf(directory: str) -> str:
@@ -349,9 +365,27 @@ def synthetic_motion_frames(seed: int, num_frames: int = 90, fps: float = 30.0,
 def write_motion_csv(path: str, seed: int, num_frames: int = 90, **kw) -> str:
     """Write a synthetic ``.motion`` CSV clip (30 fps) and return its path."""
     frames = synthetic_motion_frames(seed, num_frames, **kw)
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    np.savetxt(path, frames, delimiter=",", fmt="%.9g")
-    return path
+    return _replace(path, lambda f: np.savetxt(f, frames, delimiter=",", fmt="%.9g"))
+
+
+SLICE_CLIP = "g1_fixture_clip.motion"
+
+
+def write_slice_files(directory: str):
+    """The G1-shaped fixture and its synthetic 300-frame clip (seed 0),
+    written into ``directory``: (MJCF path, clip path)."""
+    return (write_g1_fixture(directory),
+            write_motion_csv(os.path.join(directory, SLICE_CLIP), seed=0, num_frames=300))
+
+
+def slice_config(directory: str, name: str = "train", overrides=()):
+    """The port's config ``name`` with ``overrides``, on the files of
+    :func:`write_slice_files` (which replace any robot asset or clip)."""
+    g1_path, clip_path = write_slice_files(directory)
+    cfg = load_config(name, list(overrides))
+    cfg["robot"]["asset_path"] = g1_path
+    cfg["task"]["motion_file"] = clip_path
+    return cfg
 
 
 def write_motion_pickle(path: str, seed: int, loop_mode: int = 1,

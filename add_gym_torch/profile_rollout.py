@@ -25,7 +25,6 @@ import torch
 
 from add_gym_torch.builder import build_agent, build_env
 from add_gym_torch.physics import testing as fx
-from add_gym_torch.utils.config import load_config
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NUM_ENVS = 4096
@@ -55,11 +54,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    fixtures = os.path.join(_ROOT, "build", "add_gym_torch", "fixtures")
-    cfg = load_config("train")
-    cfg["robot"]["asset_path"] = fx.write_g1_fixture(fixtures)
-    cfg["task"]["motion_file"] = fx.write_motion_csv(
-        os.path.join(fixtures, "g1_fixture_clip.motion"), seed=0, num_frames=300)
+    cfg = fx.slice_config(os.path.join(_ROOT, "build", "add_gym_torch", "fixtures"))
     cfg["engine"]["num_envs"] = NUM_ENVS
     cfg["engine"]["general_narrowphase"] = "--narrowphase" in sys.argv[1:]
     env = build_env(cfg, device="cuda")

@@ -43,12 +43,16 @@ Phases (any failure exits non-zero; nothing here catches its own error):
    control step (the cost outside the kernel), with its device op count
    from ``torch.profiler``.
 5. Training, config ``train`` (main variant): ``train_iter`` at 4096 envs
-   x 32 steps, 5 epochs x 8 minibatches of 16,384, with ``bench.py``'s
-   protocol shortened to keep the smoke near two minutes: 1 warm-up
-   iteration, one discarded 3-iteration ramp window, then the median of
-   three 3-iteration windows -> train env-steps/s; the
+   x 32 steps, 5 epochs x 8 minibatches of 16,384, through the port
+   bench's protocol (``add_gym_torch.bench.run_protocol``, ``bench.py``'s:
+   2 warm-up iterations, one discarded 5-iteration ramp window, then the
+   median of three 5-iteration windows -> train env-steps/s; the
    CUDA-event split of one more iteration into rollout / build_train_data
-   / update_model, and the peak device memory of the timed windows.
+   / update_model, the device's busy share of one more under
+   ``torch.profiler``, the peak device memory of the timed windows, the
+   kernel's ms per launch at this shape beside its bound, and the ceiling
+   from the H100's peaks).  The bench's JSON line is logged; exactly 32
+   main-variant launches an iteration, none of another instance.
 6. Training, config ``dr_pod`` (per-env variant) at 4096 envs: one warm-up
    and two timed iterations; exactly 32 per-env launches per iteration,
    finite infos, parameters that changed.
@@ -162,6 +166,8 @@ import time
 import numpy as np
 import torch
 
+from add_gym_torch import bench
+from add_gym_torch.bench import card_line, reset_counts, split_iteration, time_ms
 from add_gym_torch.builder import build_agent, build_env
 from add_gym_torch.cli.train import main as cli_main
 from add_gym_torch.learning.normalizer import NormState
@@ -176,6 +182,7 @@ from add_gym_torch.physics.fused_step import (
 )
 from add_gym_torch.physics.model import attach_geoms, build_physics_model
 from add_gym_torch.physics.narrowphase import geom_f_ext
+from add_gym_torch.physics.roofline import control_step_bound, control_step_flops
 from add_gym_torch.profile_rollout import device_rows
 from add_gym_torch.robot import build_pd_gains
 from add_gym_torch.utils.config import load_config
@@ -201,14 +208,8 @@ DESIGN = ("warp per env, lane per body; 4 envs a 128-thread block; per-env scrat
           "shared memory; tree passes level by level")
 CLI_EVAL_LEN = 0.5        # phase 10: episode cap of the run (50 control steps)
 SUBPROCESS_TIMEOUT = 300
-TRAIN_WARMUP = 1          # bench.py's protocol, shortened: warm-up iterations,
-TRAIN_WINDOW = 3          # iterations per window (bench.py: 2 and 5),
-TRAIN_WINDOWS = 3         # timed windows after one discarded ramp window
 DR_TIMED = 2
 MODE_TIMED = 2            # phases 12 and 13: timed iterations of each agent mode
-# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM rate
-PEAK_F32 = 67e12
-PEAK_BYTES = 3.35e12
 
 
 T_START = time.perf_counter()
@@ -216,48 +217,6 @@ T_START = time.perf_counter()
 
 def log(*args):
     print(f"[{time.perf_counter() - T_START:7.1f} s]", *args, flush=True)
-
-
-def control_step_flops(nb: int, nd: int, ncp: int, npair: int, substeps: int,
-                       per_env: bool = False, n_np: int = 0) -> int:
-    """f32 operations per env of one control step, counted from
-    csrc/control_step.cuh (a fused multiply-add counts as 2, a sqrt, a
-    division or a transcendental as 1).  The per-env variant adds the mass
-    scale's products: per body and substep the contact sum, the two summed
-    wrenches (6), the A, B and D blocks (9 + 9 + 1) and the bias forces
-    (6).  The narrowphase rows add 6 additions per touched body."""
-    fk = 45 + (nb - 1) * 134            # root rotation + per-joint FK and velocities
-    contact = ncp * 63                  # per point: frame, velocity, normal, friction, torque
-    pass1 = nb * 177                    # body velocities, bias forces, external forces
-    torque = nd * 20                    # PD, damping, friction, limit springs
-    pass2 = (nb - 1) * 728              # U, D, projected inertia, sandwiches, parent updates
-    solve6 = 250                        # 6x6 Cholesky + two triangular solves
-    pass3 = (nb - 1) * 77               # accelerations, qdd, joint integration
-    root = 120                          # root integration + quaternion update
-    substep = fk + contact + pass1 + torque + pass2 + solve6 + pass3 + root
-    held_sc = fk + npair * 80           # FK of the input state + sphere pairs
-    pd = nd * 6                         # target clamp + slew limit
-    if per_env:
-        substep += nb * 32
-    return substeps * substep + held_sc + pd + 6 * n_np
-
-
-def control_step_bytes(fbuf, ibuf, n: int, nb: int, nd: int, per_env: bool = False,
-                       n_np: int = 0) -> int:
-    """Bytes one launch must move: the input block (13 + 4 nd rows, plus
-    2 nd + 2 per-env rows and 6 n_np narrowphase rows), the output block
-    (13 + 3 nd + nb rows) and the model buffers, each once."""
-    rows_in = 13 + 4 * nd + (2 * nd + 2 if per_env else 0) + 6 * n_np
-    return 4 * n * (rows_in + 13 + 3 * nd + nb) + fbuf.nbytes + ibuf.nbytes
-
-
-def control_step_bound(fbuf, ibuf, counts, n: int, per_env: bool = False):
-    """(bound ms, bound by) of one launch over n envs at the H100's peaks."""
-    nb, nd, ncp, nsph, npair, substeps, n_np = counts
-    flops = control_step_flops(nb, nd, ncp, npair, substeps, per_env=per_env, n_np=n_np) * n
-    io_bytes = control_step_bytes(fbuf, ibuf, n, nb, nd, per_env=per_env, n_np=n_np)
-    bound_by = "operations" if flops / PEAK_F32 >= io_bytes / PEAK_BYTES else "bytes"
-    return max(flops / PEAK_F32, io_bytes / PEAK_BYTES) * 1e3, bound_by
 
 
 def sim_state(fields, device):
@@ -451,13 +410,6 @@ def phase_small_slice_check(g1_path, clip_path):
         f"{worst:.3e} (rtol=atol=1e-3)")
 
 
-def reset_counts():
-    cs.cuda_step.launches = 0
-    cs.cuda_step.dr_launches = 0
-    cs.cuda_step.np_launches = 0
-    cs.sharded_cuda_step.launches = 0
-
-
 def phase_slice(g1_path, clip_path):
     cfg = _slice_cfg(g1_path, clip_path, NUM_ENVS, STEPS)
     env = build_env(cfg, device=DEVICE)
@@ -505,19 +457,6 @@ def phase_slice(g1_path, clip_path):
     return NUM_ENVS * STEPS / med
 
 
-def _time_ms(fn, iters):
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def phase_times(g1_path, dr: bool, geoms: bool = False):
     """(kernel ms/launch, plain ms/call, bound ms, bound by) of one variant;
     with ``geoms`` the main variant with the narrowphase rows (the plain
@@ -538,8 +477,8 @@ def phase_times(g1_path, dr: bool, geoms: bool = False):
     torch.cuda.synchronize()
     if not torch.equal(first, again):
         raise AssertionError("two launches on one input block differ")
-    kernel_ms = _time_ms(lambda: cs.launch_control_step(fc, params, inp), TIMING_LAUNCHES)
-    plain_ms = _time_ms(lambda: fused_step(fc, params, state, cmd), PLAIN_CALLS)
+    kernel_ms = time_ms(lambda: cs.launch_control_step(fc, params, inp), TIMING_LAUNCHES)
+    plain_ms = time_ms(lambda: fused_step(fc, params, state, cmd), PLAIN_CALLS)
 
     fbuf, ibuf, counts = cs.pack_model(fc, params)
     nb, nd, ncp, nsph, npair, substeps, n_np = counts
@@ -553,7 +492,7 @@ def phase_times(g1_path, dr: bool, geoms: bool = False):
     if not geoms:
         return kernel_ms, plain_ms, bound_ms, bound_by
 
-    ext_ms = _time_ms(lambda: compute_np_ext(fc, params, dt, state), NP_EXT_CALLS)
+    ext_ms = time_ms(lambda: compute_np_ext(fc, params, dt, state), NP_EXT_CALLS)
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -582,7 +521,7 @@ def phase_sweep(g1_path):
     for n in SWEEP_ENVS:
         fields, cmd = fx.random_sim_state(model, n, seed=n + 5, height=fx.G1_PELVIS_HEIGHT)
         inp = cs.pack_state(sim_state(fields, DEVICE), torch.as_tensor(cmd, device=DEVICE))
-        kernel_ms = _time_ms(lambda: cs.launch_control_step(fc, params, inp), TIMING_LAUNCHES)
+        kernel_ms = time_ms(lambda: cs.launch_control_step(fc, params, inp), TIMING_LAUNCHES)
         t0 = time.perf_counter()
         for _ in range(TIMING_LAUNCHES):
             cs.launch_control_step(fc, params, inp)
@@ -630,68 +569,45 @@ def _train_iters(agent, state, g, iters, where):
 
 
 def phase_train(g1_path, clip_path):
-    """Config train at 4096 envs, timed with bench.py's protocol (shortened)."""
-    env, agent, state, g = _train_setup("train", g1_path, clip_path, seed=10)
+    """Config train at 4096 envs through the port bench's protocol."""
+    cfg = _slice_cfg(g1_path, clip_path, NUM_ENVS, STEPS)
+    env = build_env(cfg, device=DEVICE)
+    agent = build_agent(cfg, env)
     a = agent.cfg
     if not env.kernel or env.dr.enabled:
         raise AssertionError("config train must run the main variant of the kernel")
-    per_iter = a.steps_per_iter * NUM_ENVS
     log(f"[phase 5] train: num_envs={NUM_ENVS} steps_per_iter={a.steps_per_iter} "
         f"epochs={a.update_epochs} minibatches={int(np.ceil(a.steps_per_iter / a.batch_size))} "
         f"actor={a.actor_net} critic={a.critic_net} disc={a.disc_net} "
         f"mixed_precision={a.mixed_precision} optimizer={a.optimizer}")
-    p0 = [p.detach().clone() for p in state[0].params.parameters()]
-    torch.cuda.synchronize()
-
-    reset_counts()
-    dt, _ = _train_iters(agent, state, g, TRAIN_WARMUP, "warm-up")
-    log(f"[phase 5] warm-up: {TRAIN_WARMUP} iterations in {dt:.3f} s")
-    dt, _ = _train_iters(agent, state, g, TRAIN_WINDOW, "ramp window")
-    log(f"[phase 5] ramp window (discarded): {TRAIN_WINDOW * per_iter / dt:.1f} env-steps/s")
-    torch.cuda.reset_peak_memory_stats()
-    rates = []
-    for w in range(TRAIN_WINDOWS):
-        dt, info = _train_iters(agent, state, g, TRAIN_WINDOW, f"window {w}")
-        rates.append(TRAIN_WINDOW * per_iter / dt)
-        log(f"[phase 5] window {w}: {TRAIN_WINDOW} iterations in {dt:.4f} s = "
-            f"{rates[-1]:.1f} env-steps/s; loss={info['loss'].item():.4f} "
-            f"disc_loss={info['disc_loss'].item():.4f} mean_reward={info['mean_reward'].item():.4f}")
-    launches, dr_launches = cs.cuda_step.launches, cs.cuda_step.dr_launches
-    iters = TRAIN_WARMUP + (1 + TRAIN_WINDOWS) * TRAIN_WINDOW
-    peak = torch.cuda.max_memory_allocated()
-    if cs.cuda_step.np_launches:
-        raise AssertionError("config train launched the kernel with narrowphase rows")
-    if launches != iters * a.steps_per_iter or dr_launches:
-        raise AssertionError(f"{launches} main / {dr_launches} per-env launches over {iters} "
-                             f"iterations, expected {iters * a.steps_per_iter} / 0")
-    if not _changed(p0, state[0].params.parameters()):
-        raise AssertionError("train_iter left every parameter unchanged")
-    rate = float(np.median(rates))
-    log(f"[phase 5] train env-steps/s (median of {TRAIN_WINDOWS} windows of {TRAIN_WINDOW}): "
-        f"{rate:.1f}; {launches} kernel launches over {iters} iterations "
-        f"({launches // iters} per iteration); peak device memory {peak / 2**30:.3f} GiB")
-
-    split, total = _split(agent, state, g, "phase 5")
-    return dict(rate=rate, launches=launches, split=split, total_ms=total, peak_bytes=peak)
+    # the bench sets the launch counts to 0 just before its first iteration
+    out = bench.run_protocol(env, agent, NUM_ENVS, log=lambda msg: log(f"[phase 5] bench: {msg}"))
+    counts = bench.read_counts()
+    iters = bench.WARMUP + (1 + bench.WINDOWS) * bench.ITERS + 2   # + the split, the profiled
+    want = dict(main=iters * a.steps_per_iter, per_env=0, narrowphase=0, sharded=0)
+    if counts != want or out["kernel_launches_per_iter"] != a.steps_per_iter:
+        raise AssertionError(f"phase 5: launches {counts} over {iters} iterations, expected {want}")
+    if out["floor_ratio"] is not None and not 0 < out["floor_ratio"] < 1:
+        raise AssertionError(f"phase 5: floor_ratio {out['floor_ratio']} outside (0, 1)")
+    log(f"[phase 5] bench line: {json.dumps(out)}")
+    split = out["split_ms"]
+    log(f"[phase 5] train env-steps/s (median of {bench.WINDOWS} windows of {bench.ITERS}): "
+        f"{out['value']:.1f}; {counts['main']} kernel launches over {iters} iterations "
+        f"({counts['main'] // iters} per iteration); split of one iteration (CUDA events): rollout "
+        f"{split['rollout']:.2f} ms, build_train_data {split['data']:.2f} ms, update_model "
+        f"{split['update']:.2f} ms, normalizers+info {split['end']:.2f} ms; total "
+        f"{out['iter_ms']:.2f} ms; device busy share {out['device_busy_share']:.4f}; peak device "
+        f"memory {out['peak_device_bytes'] / 2**30:.3f} GiB; kernel "
+        f"{out['kernel_ms_per_launch']:.4f} ms/launch (bound {out['kernel_bound_ms']:.5f}); "
+        f"ceiling {out['derived_ceiling']} env-steps/s, floor_ratio {out['floor_ratio']}")
+    return dict(rate=out["value"], launches=counts["main"], split=split, total_ms=out["iter_ms"],
+                peak_bytes=out["peak_device_bytes"], bench=out)
 
 
 def _split(agent, state, g, where):
-    """The split of one more iteration on ``state``: CUDA events at the
-    phase boundaries (``train_iter``'s hook).  Returns (ms by phase, total ms)."""
-    marks = []
-
-    def hook(phase, outputs=None):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((phase, ev))
-
-    hook("start")
-    ts, es, obs, _ = agent.train_iter(*state, generator=g, hook=hook)
-    state[:] = [ts, es, obs]
-    hook("end")
-    torch.cuda.synchronize()
-    split = {b[0]: a[1].elapsed_time(b[1]) for a, b in zip(marks, marks[1:])}
-    total = marks[0][1].elapsed_time(marks[-1][1])
+    """The split of one more iteration on ``state`` (``bench.split_iteration``),
+    logged.  Returns (ms by phase, total ms)."""
+    split, total = split_iteration(agent, state, g)
     log(f"[{where}] split of one iteration (CUDA events): rollout {split['rollout']:.2f} ms, "
         f"build_train_data {split['data']:.2f} ms, update_model {split['update']:.2f} ms, "
         f"normalizers+info {split['end']:.2f} ms; total {total:.2f} ms")
@@ -869,8 +785,8 @@ def phase_sharded(g1_path):
         sh = EnvShard(0, n, NUM_ENVS)
         local, lcmd = _cut(state, sh.slice), cmd[sh.slice]
         inp = cs.pack_state(local, lcmd, params)
-        kernel_ms = _time_ms(lambda: cs.launch_control_step(fc, params, inp), TIMING_LAUNCHES)
-        plain_ms = (_time_ms(lambda: sharded_fused_step(fc, params, local, lcmd, sh), PLAIN_CALLS)
+        kernel_ms = time_ms(lambda: cs.launch_control_step(fc, params, inp), TIMING_LAUNCHES)
+        plain_ms = (time_ms(lambda: sharded_fused_step(fc, params, local, lcmd, sh), PLAIN_CALLS)
                     if n == SHARD_ENVS[0] else None)
         bound_ms, bound_by = control_step_bound(fbuf, ibuf, counts, n)
         times[n] = (kernel_ms, plain_ms, bound_ms, bound_by)
@@ -1328,14 +1244,6 @@ def phase_video(mesh_path, g1_path, clip_path):
                 view_frames=int(want.shape[0]))
 
 
-def _card_line():
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    return smi.stdout.strip().splitlines()[0]
-
-
 def compare_kernel(other_dir) -> int:
     """This checkout's kernel against the one in ``other_dir`` (another
     checkout), main variant, the same 4096-env input, timed in turns."""
@@ -1362,7 +1270,7 @@ def compare_kernel(other_dir) -> int:
             "this": lambda: cs.launch_control_step(fc, params, inp)}
     times = {"other": [], "this": []}
     for name in ("other", "this", "this", "other"):
-        times[name].append(_time_ms(runs[name], TIMING_LAUNCHES))
+        times[name].append(time_ms(runs[name], TIMING_LAUNCHES))
         log(f"[compare] {name}: {times[name][-1]:.4f} ms/launch at N={NUM_ENVS} "
             f"(CUDA events, {TIMING_LAUNCHES} launches)")
     (a_state, a_contact), (b_state, b_contact) = (
@@ -1372,7 +1280,7 @@ def compare_kernel(other_dir) -> int:
     diff["contact"] = (a_contact - b_contact).abs().max().item()
     print(json.dumps({"compare_kernel": {"n": NUM_ENVS, "other_ms": times["other"],
                                          "this_ms": times["this"], "max_abs_diff": diff}}))
-    print(_card_line())
+    print(card_line())
     return 0
 
 
@@ -1398,9 +1306,7 @@ def main() -> int:
             f"{cs.kernel_info(per)}")
 
     mini_path = fx.write_mini_mjcf(FIXTURES)
-    g1_path = fx.write_g1_fixture(FIXTURES)
-    clip_path = fx.write_motion_csv(os.path.join(FIXTURES, "g1_fixture_clip.motion"),
-                                    seed=0, num_frames=300)
+    g1_path, clip_path = fx.write_slice_files(FIXTURES)
 
     worst = phase_kernel_vs_plain(mini_path, g1_path)
     worst_dr = phase_dr_kernel_vs_plain(g1_path)
@@ -1464,6 +1370,9 @@ def main() -> int:
         "train_env_steps_per_s": train["rate"],
         "train_split_ms": train["split"], "train_iter_ms": train["total_ms"],
         "train_peak_device_bytes": train["peak_bytes"],
+        "train_floor_ratio": train["bench"]["floor_ratio"],
+        "train_derived_ceiling": train["bench"]["derived_ceiling"],
+        "train_device_busy_share": train["bench"]["device_busy_share"],
         "dr_train_env_steps_per_s": train_dr["rate"],
         "np_train_env_steps_per_s": train_np["rate"], "np_train_iter_ms": train_np["iter_ms"],
         "np_train_peak_device_bytes": train_np["peak_bytes"],
@@ -1482,7 +1391,7 @@ def main() -> int:
         "num_envs": NUM_ENVS, "steps_per_iter": STEPS,
     }))
     print(json.dumps(video))
-    print(_card_line())
+    print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -56,6 +56,8 @@ def test_port_imports_no_jax():
                  "add_gym_torch.cli.convert_motion", "add_gym_torch.cli.publish",
                  "add_gym_torch.render", "add_gym_torch.render.mesh",
                  "add_gym_torch.physics.mujoco_xval", "add_gym_torch.native",
-                 "add_gym_torch.robot", "add_gym_torch.kinematics.char_model"):
+                 "add_gym_torch.robot", "add_gym_torch.kinematics.char_model",
+                 # ... and the bench with the counts and peaks it shares with the smoke
+                 "add_gym_torch.bench", "add_gym_torch.physics.roofline"):
         assert name in out["names"], name
     assert out["bad"] == [], f"the port imported {out['bad']}"
