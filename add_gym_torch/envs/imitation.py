@@ -31,6 +31,7 @@ from add_gym_torch.physics.engine import EngineParams, SimState, default_state
 from add_gym_torch.physics.fused_step import FusedModelConstants
 from add_gym_torch.physics.model import PhysicsModel
 from add_gym_torch.utils.device import resolve_device
+from add_gym_torch.utils.trace import span
 
 
 @dataclass(frozen=True)
@@ -377,6 +378,12 @@ class ImitationEnv:
         step then composes :meth:`step`, :meth:`reset_where` and
         :meth:`compute_obs` on the same draws, ``aux`` is not read and
         ``aux3`` is None.
+
+        Each section runs in a span of ``utils.trace`` (recorded only while
+        a profiler runs): ``env.physics``, ``env.motion``,
+        ``env.reward_done``, ``env.reset`` and ``env.obs``; the composed
+        step has ``env.physics`` (all of :meth:`step`), ``env.reset`` and
+        ``env.obs``.
         """
         task = self.task
         N = state.time.shape[0]
@@ -384,7 +391,9 @@ class ImitationEnv:
         K = len(self.tar_steps) if task.enable_tar_obs else 0
         dt = self.ctrl_dt
         if not self._aux_shiftable:
-            state2, next_obs, disc_obs, disc_obs_demo, reward, done = self.step(state, pd_target)
+            with span("env.physics"):
+                state2, next_obs, disc_obs, disc_obs_demo, reward, done = self.step(
+                    state, pd_target)
             out = dict(
                 reward=reward, done=done, disc_obs=disc_obs,
                 disc_obs_demo=disc_obs_demo, motion_ids=state.motion_ids,
@@ -392,32 +401,37 @@ class ImitationEnv:
                 next_obs=next_obs,
             )
             reset = done != int(DoneFlags.NULL)
-            state3 = self.reset_where(state2, reset, None, draws=(ids_f, times_f, dr))
-            return state3, self.compute_obs(state3), None, out
+            with span("env.reset"):
+                state3 = self.reset_where(state2, reset, None, draws=(ids_f, times_f, dr))
+            with span("env.obs"):
+                return state3, self.compute_obs(state3), None, out
 
         # --- physics --------------------------------------------------
-        sim, body_contact = self._physics(state, pd_target)
-        time = state.time + dt
-        state2 = self._push_history(replace(state, sim=sim, time=time))
-        mt = time + state.motion_offsets
-        ids = state.motion_ids
+        with span("env.physics"):
+            sim, body_contact = self._physics(state, pd_target)
+            time = state.time + dt
+            state2 = self._push_history(replace(state, sim=sim, time=time))
+            mt = time + state.motion_offsets
+            ids = state.motion_ids
 
         # --- advance the motion-row cache: shift + one fresh row -------
-        new_t = mt + (K * dt if K else 0.0)
-        new_row = self.motion.get_motion_rows(ids, new_t)      # [N, R]
-        aux_cur = torch.cat([aux[:, 1:], new_row[:, None]], dim=1)
-        win = self.motion.split_rows(aux_cur[:, :H])
-        ref = self.motion.split_rows(aux_cur[:, H - 1])
+        with span("env.motion"):
+            new_t = mt + (K * dt if K else 0.0)
+            new_row = self.motion.get_motion_rows(ids, new_t)      # [N, R]
+            aux_cur = torch.cat([aux[:, 1:], new_row[:, None]], dim=1)
+            win = self.motion.split_rows(aux_cur[:, :H])
+            ref = self.motion.split_rows(aux_cur[:, H - 1])
 
-        disc_obs = self._disc_obs_from_hist(state2)
-        disc_obs_demo = obs_mod.compute_disc_obs(
-            *win, enable_vel_obs=task.enable_vel_obs, global_obs=task.global_obs,
-        )
-        reward = self._reward(sim, ref)
+        with span("env.reward_done"):
+            disc_obs = self._disc_obs_from_hist(state2)
+            disc_obs_demo = obs_mod.compute_disc_obs(
+                *win, enable_vel_obs=task.enable_vel_obs, global_obs=task.global_obs,
+            )
+            reward = self._reward(sim, ref)
 
-        meta = self.motion.meta_all[ids]                   # [N, 7]
-        done = self._done(time, sim, ref, body_contact, mt, meta)
-        state2 = replace(state2, done=done)
+            meta = self.motion.meta_all[ids]                   # [N, 7]
+            done = self._done(time, sim, ref, body_contact, mt, meta)
+            state2 = replace(state2, done=done)
 
         out = dict(
             reward=reward, done=done, disc_obs=disc_obs,
@@ -425,49 +439,50 @@ class ImitationEnv:
             ep_time=time,
         )
 
-        reset = done != int(DoneFlags.NULL)
-        ids3 = torch.where(reset, ids_f, ids)
-        mt3 = torch.where(reset, times_f, mt)
-
         # --- reset-side gather: fresh window + fresh tar = fresh aux ---
-        timesB = times_f[:, None] + self._window_offsets(mt.dtype)[None, :]
-        idsB = ids_f[:, None].expand(timesB.shape)
-        rowsB = self.motion.get_motion_rows(idsB, timesB)   # [N, H+K, R]
-        fresh = self._fresh_state(ids_f, times_f, self.motion.split_rows(rowsB[:, :H]), dr)
-        state3 = _where_env(reset, fresh, state2)
-        aux3 = torch.where(reset[:, None, None], rowsB, aux_cur)
+        with span("env.reset"):
+            reset = done != int(DoneFlags.NULL)
+            ids3 = torch.where(reset, ids_f, ids)
+            mt3 = torch.where(reset, times_f, mt)
+            timesB = times_f[:, None] + self._window_offsets(mt.dtype)[None, :]
+            idsB = ids_f[:, None].expand(timesB.shape)
+            rowsB = self.motion.get_motion_rows(idsB, timesB)   # [N, H+K, R]
+            fresh = self._fresh_state(ids_f, times_f, self.motion.split_rows(rowsB[:, :H]), dr)
+            state3 = _where_env(reset, fresh, state2)
+            aux3 = torch.where(reset[:, None, None], rowsB, aux_cur)
 
         # --- stacked obs pass [N, 2, ...]: next_obs (state2) + obs (state3)
-        stk = lambda a, b: torch.stack([a, b], dim=1)
-        sim3 = state3.sim
-        if task.enable_phase_obs:
-            phase = self.motion.calc_motion_phase(stk(ids, ids3), stk(mt, mt3))
-        else:
-            phase = torch.zeros((N, 2), dtype=mt.dtype, device=mt.device)
-        if K:
-            D = self.model.nd
-            tar_rp = stk(aux_cur[:, H:, 0:3], aux3[:, H:, 0:3])
-            tar_rr = stk(aux_cur[:, H:, 3:7], aux3[:, H:, 3:7])
-            tar_dp = stk(aux_cur[:, H:, 13:13 + D], aux3[:, H:, 13:13 + D])
-        else:
-            tar_rp = tar_rr = tar_dp = torch.zeros((N, 2, 0, 0), device=mt.device)
-        obs2x = obs_mod.compute_add_obs(
-            stk(sim.root_pos, sim3.root_pos),
-            stk(sim.root_quat, sim3.root_quat),
-            stk(sim.root_vel, sim3.root_vel),
-            stk(sim.root_ang_vel, sim3.root_ang_vel),
-            stk(sim.dof_pos, sim3.dof_pos),
-            stk(sim.dof_vel, sim3.dof_vel),
-            phase, tar_rp, tar_rr, tar_dp,
-            enable_vel_obs=task.enable_vel_obs,
-            global_obs=task.global_obs,
-            root_height_obs=task.root_height_obs,
-            enable_phase_obs=task.enable_phase_obs,
-            num_phase_encoding=task.num_phase_encoding,
-            enable_tar_obs=task.enable_tar_obs,
-        )
-        out["next_obs"] = obs2x[:, 0]
-        return state3, obs2x[:, 1], aux3, out
+        with span("env.obs"):
+            stk = lambda a, b: torch.stack([a, b], dim=1)
+            sim3 = state3.sim
+            if task.enable_phase_obs:
+                phase = self.motion.calc_motion_phase(stk(ids, ids3), stk(mt, mt3))
+            else:
+                phase = torch.zeros((N, 2), dtype=mt.dtype, device=mt.device)
+            if K:
+                D = self.model.nd
+                tar_rp = stk(aux_cur[:, H:, 0:3], aux3[:, H:, 0:3])
+                tar_rr = stk(aux_cur[:, H:, 3:7], aux3[:, H:, 3:7])
+                tar_dp = stk(aux_cur[:, H:, 13:13 + D], aux3[:, H:, 13:13 + D])
+            else:
+                tar_rp = tar_rr = tar_dp = torch.zeros((N, 2, 0, 0), device=mt.device)
+            obs2x = obs_mod.compute_add_obs(
+                stk(sim.root_pos, sim3.root_pos),
+                stk(sim.root_quat, sim3.root_quat),
+                stk(sim.root_vel, sim3.root_vel),
+                stk(sim.root_ang_vel, sim3.root_ang_vel),
+                stk(sim.dof_pos, sim3.dof_pos),
+                stk(sim.dof_vel, sim3.dof_vel),
+                phase, tar_rp, tar_rr, tar_dp,
+                enable_vel_obs=task.enable_vel_obs,
+                global_obs=task.global_obs,
+                root_height_obs=task.root_height_obs,
+                enable_phase_obs=task.enable_phase_obs,
+                num_phase_encoding=task.num_phase_encoding,
+                enable_tar_obs=task.enable_tar_obs,
+            )
+            out["next_obs"] = obs2x[:, 0]
+            return state3, obs2x[:, 1], aux3, out
 
     def _fresh_state(self, ids, times, hist, dr) -> EnvState:
         """Episode start at the reference pose of (ids, times); ``hist`` is

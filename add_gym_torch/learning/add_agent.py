@@ -67,6 +67,7 @@ from add_gym_torch.learning import optim
 from add_gym_torch.learning import sampler as sampler_mod
 from add_gym_torch.learning.networks import NET_REGISTRY, STD_TYPES, ADDNet
 from add_gym_torch.parallel.mesh import Dist
+from add_gym_torch.utils.trace import span
 
 DISC_MODES = ("add", "amp", "none")
 OPTIMIZERS = ("adam", "fused_adam", "sgd")
@@ -393,57 +394,65 @@ class ADDAgent:
         """
         env, cfg, dev = self.env, self.cfg, self.device
         N = obs.shape[0]
-        if draws is None:
-            draws = self.sample_rollout_draws(ts, N, num_steps, generator)
-        noise, bern, ids_f, times_f = draws[:4]
-        noise, bern, times_f = (to_device(x, dev, torch.float32) for x in (noise, bern, times_f))
-        ids_f = to_device(ids_f, dev, torch.int64)
-        if len(draws) > 4:
-            dr_f = {k: to_device(draws[4][k], dev, torch.float32) for k in DR_KEYS}
-        elif env.dr.enabled:
-            raise ValueError("domain randomization is on: draws need a fifth entry, dr_f")
-        else:
-            dr_f = {k: v.expand(num_steps, N) for k, v in env.sample_dr(N).items()}
-        out_dtype = torch.bfloat16 if cfg.mixed_precision else torch.float32
-        net = ts.params
+        with span("rollout.draws"):
+            if draws is None:
+                draws = self.sample_rollout_draws(ts, N, num_steps, generator)
+            noise, bern, ids_f, times_f = draws[:4]
+            noise, bern, times_f = (to_device(x, dev, torch.float32)
+                                    for x in (noise, bern, times_f))
+            ids_f = to_device(ids_f, dev, torch.int64)
+            if len(draws) > 4:
+                dr_f = {k: to_device(draws[4][k], dev, torch.float32) for k in DR_KEYS}
+            elif env.dr.enabled:
+                raise ValueError("domain randomization is on: draws need a fifth entry, dr_f")
+            else:
+                dr_f = {k: v.expand(num_steps, N) for k, v in env.sample_dr(N).items()}
+            out_dtype = torch.bfloat16 if cfg.mixed_precision else torch.float32
+            net = ts.params
 
-        aux = env.motion_aux(env_state)
-        count = torch.zeros((), device=dev)
-        s1 = torch.zeros(obs.shape[-1], device=dev)
-        s2 = torch.zeros(obs.shape[-1], device=dev)
-        # the fixed std is one constant for the whole rollout; a learned
-        # one comes from the net at every step
-        fixed_logstd = (torch.full((N, env.num_dofs), self.logstd, device=dev)
-                        if cfg.actor_std_type == "fixed" else None)
+            aux = env.motion_aux(env_state)
+            count = torch.zeros((), device=dev)
+            s1 = torch.zeros(obs.shape[-1], device=dev)
+            s2 = torch.zeros(obs.shape[-1], device=dev)
+            # the fixed std is one constant for the whole rollout; a learned
+            # one comes from the net at every step
+            fixed_logstd = (torch.full((N, env.num_dofs), self.logstd, device=dev)
+                            if cfg.actor_std_type == "fixed" else None)
         steps = []
         for t in range(num_steps):
-            norm_obs = norm.normalize(ts.obs_norm, obs)
-            mean, logstd = self._actor(net, norm_obs)
-            if logstd is None:
-                logstd = fixed_logstd
-            a_rand = mean + torch.exp(logstd) * noise[t]
-            norm_a = torch.where(bern[t] == 1.0, a_rand, mean)
-            a_logp = dist.log_prob(mean, logstd, norm_a)
-            action = norm_a * self.a_std + self.a_mean
+            with span("rollout.step"):
+                with span("policy"):
+                    norm_obs = norm.normalize(ts.obs_norm, obs)
+                    mean, logstd = self._actor(net, norm_obs)
+                    if logstd is None:
+                        logstd = fixed_logstd
+                    a_rand = mean + torch.exp(logstd) * noise[t]
+                    norm_a = torch.where(bern[t] == 1.0, a_rand, mean)
+                    a_logp = dist.log_prob(mean, logstd, norm_a)
+                    action = norm_a * self.a_std + self.a_mean
 
-            count = count + float(N)
-            s1 = s1 + obs.sum(0)
-            s2 = s2 + (obs * obs).sum(0)
+                    count = count + float(N)
+                    s1 = s1 + obs.sum(0)
+                    s2 = s2 + (obs * obs).sum(0)
 
-            env_state, obs_after, aux, step_out = env.rollout_step_cached(
-                env_state, action, aux, ids_f[t], times_f[t], {k: v[t] for k, v in dr_f.items()}
-            )
-            next_obs = step_out.pop("next_obs")
-            if cfg.disc_mode != "amp":
-                step_out["disc_diff"] = step_out.pop("disc_obs_demo") - step_out.pop("disc_obs")
-            steps.append(dict(
-                norm_obs=norm_obs.to(out_dtype),
-                norm_next=norm.normalize(ts.obs_norm, next_obs).to(out_dtype),
-                norm_a=norm_a, a_logp=a_logp, rand_mask=bern[t][:, 0],
-                **step_out,
-            ))
-            obs = obs_after
-        traj = {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
+                with span("env.step"):
+                    env_state, obs_after, aux, step_out = env.rollout_step_cached(
+                        env_state, action, aux, ids_f[t], times_f[t],
+                        {k: v[t] for k, v in dr_f.items()})
+                with span("rollout.record"):
+                    next_obs = step_out.pop("next_obs")
+                    if cfg.disc_mode != "amp":
+                        step_out["disc_diff"] = (step_out.pop("disc_obs_demo")
+                                                 - step_out.pop("disc_obs"))
+                    steps.append(dict(
+                        norm_obs=norm_obs.to(out_dtype),
+                        norm_next=norm.normalize(ts.obs_norm, next_obs).to(out_dtype),
+                        norm_a=norm_a, a_logp=a_logp, rand_mask=bern[t][:, 0],
+                        **step_out,
+                    ))
+                obs = obs_after
+        with span("rollout.stack"):
+            traj = {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
         return env_state, obs, traj, (count, s1, s2)
 
     def _rollout_steps(self, ts: TrainState, env_state: EnvState, obs, num_steps: int,
@@ -759,11 +768,19 @@ class ADDAgent:
                 perm = to_device(perms[e], self.device, torch.int64)
             idx = perm[: num_batches * mb_blk].reshape(num_batches, mb_blk)
             for b in range(num_batches):
-                batch = {k: v[idx[b]].reshape((mb_size,) + v.shape[2:]) for k, v in blocks.items()}
-                loss, info = self._loss(net, batch)
-                grads = self._mean_grads(torch.autograd.grad(loss, params))
-                opt_state = self._opt_step(net, grads, opt_state)
-                infos.append(info)
+                with span("update.minibatch"):
+                    with span("update.batch"):
+                        batch = {k: v[idx[b]].reshape((mb_size,) + v.shape[2:])
+                                 for k, v in blocks.items()}
+                    with span("update.loss"):
+                        loss, info = self._loss(net, batch)
+                    with span("update.grad"):
+                        grads = torch.autograd.grad(loss, params)
+                    with span("update.allreduce"):
+                        grads = self._mean_grads(grads)
+                    with span("update.opt"):
+                        opt_state = self._opt_step(net, grads, opt_state)
+                    infos.append(info)
         return opt_state, {k: torch.stack([i[k] for i in infos]) for k in infos[0]}
 
     def update_model(self, ts: TrainState, data, perms=None,
@@ -805,46 +822,58 @@ class ADDAgent:
         with the train data, "update" with the update's infos
         (``chip_smoke.py`` records a CUDA event there; ``debug.nans``
         checks the outputs).  Returns ``(ts, env_state, obs, info)``;
-        ``info`` holds device scalars."""
+        ``info`` holds device scalars.
+
+        While a profiler runs, the iteration records its spans
+        (``utils.trace``): the root ``train_iter`` holds ``rollout`` (one
+        ``rollout.step`` a control step: ``policy``, ``env.step``,
+        ``rollout.record``), ``data``, ``update`` (one ``update.minibatch`` a
+        minibatch step) and ``normalizers``."""
         cfg = self.cfg
-        env_state, obs, traj, obs_stats = self.rollout_lean(
-            ts, env_state, obs, cfg.steps_per_iter, generator, draws=draws)
-        if hook is not None:
-            hook("rollout", dict(traj, obs=obs))
-        ts, data, data_info = self.build_train_data(ts, traj, demo_draws, generator)
-        if hook is not None:
-            hook("data", data)
-        ts, train_info = self.update_model(ts, data, perms, generator)
-        if hook is not None:
-            hook("update", train_info)
+        with span("train_iter"):
+            with span("rollout"):
+                env_state, obs, traj, obs_stats = self.rollout_lean(
+                    ts, env_state, obs, cfg.steps_per_iter, generator, draws=draws)
+            if hook is not None:
+                hook("rollout", dict(traj, obs=obs))
+            with span("data"):
+                ts, data, data_info = self.build_train_data(ts, traj, demo_draws, generator)
+            if hook is not None:
+                hook("data", data)
+            with span("update"):
+                ts, train_info = self.update_model(ts, data, perms, generator)
+            if hook is not None:
+                hook("update", train_info)
 
-        with torch.no_grad():
-            update = ts.sample_count < cfg.normalizer_samples
-            new_obs = norm.update_normalizer_from_stats(ts.obs_norm, *self._global_sum(*obs_stats))
-            new_disc, disc_fields = self._disc_norm_update(ts.disc_norm, data)
-            pick = lambda new, old, names: replace(new, **{
-                f: torch.where(update, getattr(new, f), getattr(old, f)) for f in names})
-            T, N = data["reward"].shape
-            ts = replace(
-                ts,
-                obs_norm=pick(new_obs, ts.obs_norm, ("count", "mean", "mean_sq")),
-                disc_norm=pick(new_disc, ts.disc_norm, disc_fields),
-                sample_count=ts.sample_count + cfg.steps_per_iter * N * self.dist.world_size,
-            )
+            with span("normalizers"), torch.no_grad():
+                update = ts.sample_count < cfg.normalizer_samples
+                new_obs = norm.update_normalizer_from_stats(ts.obs_norm,
+                                                            *self._global_sum(*obs_stats))
+                new_disc, disc_fields = self._disc_norm_update(ts.disc_norm, data)
+                pick = lambda new, old, names: replace(new, **{
+                    f: torch.where(update, getattr(new, f), getattr(old, f)) for f in names})
+                T, N = data["reward"].shape
+                ts = replace(
+                    ts,
+                    obs_norm=pick(new_obs, ts.obs_norm, ("count", "mean", "mean_sq")),
+                    disc_norm=pick(new_disc, ts.disc_norm, disc_fields),
+                    sample_count=ts.sample_count + cfg.steps_per_iter * N * self.dist.world_size,
+                )
 
-            # means over all ranks' samples, from global sums and counts
-            done = traj["done"]
-            done_mask = (done != 0).float()
-            n = float(done.numel() * self.dist.world_size)
-            r_sum, len_sum, n_done, n_fail = self._global_sum(
-                data["reward"].sum(), torch.sum(traj["ep_time"] / self.env.ctrl_dt * done_mask),
-                done_mask.sum(), (done == int(DoneFlags.FAIL)).float().sum())
-            info = dict(data_info, **train_info)
-            info["mean_reward"] = r_sum / n
-            # at each done, ep_time is the finished episode's length
-            info["mean_ep_len"] = len_sum / torch.clamp_min(n_done, 1.0)
-            info["done_frac"] = n_done / n
-            info["fail_frac"] = n_fail / n
+                # means over all ranks' samples, from global sums and counts
+                done = traj["done"]
+                done_mask = (done != 0).float()
+                n = float(done.numel() * self.dist.world_size)
+                r_sum, len_sum, n_done, n_fail = self._global_sum(
+                    data["reward"].sum(),
+                    torch.sum(traj["ep_time"] / self.env.ctrl_dt * done_mask),
+                    done_mask.sum(), (done == int(DoneFlags.FAIL)).float().sum())
+                info = dict(data_info, **train_info)
+                info["mean_reward"] = r_sum / n
+                # at each done, ep_time is the finished episode's length
+                info["mean_ep_len"] = len_sum / torch.clamp_min(n_done, 1.0)
+                info["done_frac"] = n_done / n
+                info["fail_frac"] = n_fail / n
         return ts, env_state, obs, info
 
     def _disc_norm_update(self, disc_norm, data):

@@ -30,6 +30,7 @@ tensor; off, it adds no work.
 from __future__ import annotations
 
 import copy
+import json
 import math
 import os
 import time
@@ -45,6 +46,7 @@ from add_gym_torch.learning.add_agent import (
 )
 from add_gym_torch.parallel.mesh import Dist, rank_seed
 from add_gym_torch.utils.device import resolve_device
+from add_gym_torch.utils import trace
 from add_gym_torch.utils.logger import TrainLogger
 
 CKPT_FILE = "train_state.pt"
@@ -247,7 +249,8 @@ class Trainer:
             output_iter = self.iter % self.iters_per_output == 0
             metrics_iter = output_iter or self.iter % metrics_every == 0
             if output_iter and self.test_episodes > 0:
-                test_info = self.evaluate(self.test_episodes)
+                with trace.span("trainer.evaluate"):
+                    test_info = self.evaluate(self.test_episodes)
             if prof_count and self.iter == prof_start:
                 prof = self._start_profile()
 
@@ -282,12 +285,15 @@ class Trainer:
             sample_count = int(self.ts.sample_count)
             self.logger.log(metrics, sample_count)
             if output_iter:
-                self.save(numbered=bool(self.cfg.get("save_intermediate", False)))
+                with trace.span("trainer.save"):
+                    self.save(numbered=bool(self.cfg.get("save_intermediate", False)))
                 self.logger.log_sampler_image(self.ts.sampler.errors.cpu().numpy(), sample_count)
                 outputs = self.iter // self.iters_per_output
                 if self.video_interval and outputs % self.video_interval == 0:
                     # every rank rolls forward; rank 0 writes
-                    self.record_video(os.path.join(self.exp_dir, f"rollout_{self.iter:07d}.gif"))
+                    with trace.span("trainer.video"):
+                        self.record_video(os.path.join(self.exp_dir,
+                                                       f"rollout_{self.iter:07d}.gif"))
             self.iter += 1
         if prof is not None:
             self._stop_profile(prof, prof_cfg)
@@ -304,10 +310,30 @@ class Trainer:
         return prof
 
     def _stop_profile(self, prof, prof_cfg):
+        """Stop the profiler and export its chrome trace, with the program's
+        spans of the window (``utils.trace``) added as complete events on
+        the trace's clock, on a track of their own."""
         prof.stop()
         out = prof_cfg.get("dir", os.path.join(self.exp_dir, "profile"))
         os.makedirs(out, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(out, f"trace_rank{self.dist.rank}.json"))
+        path = os.path.join(out, f"trace_rank{self.dist.rank}.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            doc = json.load(f)
+        events = doc["traceEvents"]
+        base = int(doc.get("baseTimeNanoseconds", 0))
+        ns = lambda us: base + round(float(us) * 1000)
+        anchors = [(ns(e["ts"]), ns(e["ts"]) + round(float(e.get("dur", 0)) * 1000))
+                   for e in events if e.get("name") == trace.ANCHOR and "ts" in e]
+        spans = trace.place(trace.take(), anchors)
+        events.append(dict(ph="M", name="process_name", pid="add_gym_torch spans", tid=0,
+                           args=dict(name="add_gym_torch spans")))
+        for name, start, end, parent, it in spans:
+            events.append(dict(ph="X", cat="program_span", name=name, pid="add_gym_torch spans",
+                               tid=0, ts=(start - base) / 1000, dur=(end - start) / 1000,
+                               args=dict(parent=parent, iteration=it)))
+        with open(path, "w") as f:
+            json.dump(doc, f)
 
     # ----------------------------------------------------------------- video
 

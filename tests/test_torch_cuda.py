@@ -25,7 +25,10 @@ card matches FK on the CPU within 1e-5, and a one-rank ``Trainer`` with
 kernel steps each env by one warp: two launches on one input give the same
 bits for every instance; it matches the plain step at N = 1, 37, 4000 and
 4096 (less than a block, ragged, full); and a model of ``AGT_MAX_BODIES``
-= 32 bodies runs while 33 are refused.
+= 32 bodies runs while 33 are refused.  A traced ``train_iter`` of
+``train`` and of ``dr_pod`` at 64 envs: no device row carries a program
+span's name, and each kernel's launch row lies inside an ``env.physics``
+span.
 """
 
 import dataclasses
@@ -33,6 +36,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from add_gym_torch.builder import build_agent, build_env
 from add_gym_torch.learning.add_agent import state_digest
@@ -46,6 +50,7 @@ from add_gym_torch.physics.fused_step import (
 )
 from add_gym_torch.physics.model import attach_geoms, build_physics_model
 from add_gym_torch.robot import build_pd_gains
+from add_gym_torch.utils import trace
 from add_gym_torch.utils.config import load_config
 
 pytestmark = pytest.mark.cuda
@@ -527,3 +532,50 @@ def test_trainer_video_interval_on_card(paths, tmp_path):
     if importlib.util.find_spec("PIL") is not None:
         assert (tmp_path / "video" / "rollout_0000000.gif").stat().st_size > 0
     t.close()
+
+
+@pytest.mark.parametrize("config", ["train", "dr_pod"])
+def test_traced_train_iter_spans_on_card(paths, config):
+    """One traced ``train_iter`` at 64 envs x 4 steps (after an untraced
+    one): no device-typed event of the trace carries the name of a program
+    span or of the anchor (``utils.trace``), the spans mapped through the
+    anchor hold the 4 control steps, and the launch row of every
+    ``agt_control_step`` kernel lies inside an ``env.physics`` span."""
+    n, steps = 64, 4
+    cfg = load_config(config)
+    cfg["robot"]["asset_path"] = paths["g1"]
+    cfg["task"]["motion_file"] = paths["clip"]
+    cfg["engine"]["num_envs"] = n
+    cfg["agent"]["steps_per_iter"] = steps
+    for k in ("actor_net", "critic_net", "disc_net"):
+        cfg["agent"][k] = "fc_2layers_64units"
+    env = build_env(cfg, device="cuda")
+    assert env.kernel
+    agent = build_agent(cfg, env)
+    ts = agent.init_train_state()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    es = env.reset_where(env.init_state(n), torch.ones(n, dtype=torch.bool, device="cuda"),
+                         ts.sampler, generator=g)
+    ts, es, obs, _ = agent.train_iter(ts, es, env.compute_obs(es), generator=g)
+    torch.cuda.synchronize()
+    trace.take()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        agent.train_iter(ts, es, obs, generator=g)
+        torch.cuda.synchronize()
+    records = trace.take()
+    events = list(prof.profiler.kineto_results.events())
+    device = [e for e in events if e.device_type() == torch.autograd.DeviceType.CUDA]
+    host = [e for e in events if e.device_type() != torch.autograd.DeviceType.CUDA]
+    assert not {r[0] for r in records} & {e.name() for e in device}
+    placed = trace.place(records, [(e.start_ns(), e.end_ns()) for e in host
+                                   if e.name() == trace.ANCHOR])
+    assert sum(r[0] == "rollout.step" for r in placed) == steps
+    physics = [(s, e) for name, s, e, _, _ in placed if name == "env.physics"]
+    kernels = [e for e in device if "agt_control_step" in e.name()]
+    assert len(kernels) == steps
+    launches = {e.correlation_id(): e for e in host if e.name().startswith(("cuda", "cu"))}
+    for k in kernels:
+        launch = launches.get(k.correlation_id()) or launches.get(k.linked_correlation_id())
+        assert launch is not None, (k.name(), k.correlation_id(), k.linked_correlation_id())
+        assert any(s <= launch.start_ns() and launch.end_ns() <= e for s, e in physics), \
+            (launch.name(), launch.start_ns(), physics)
