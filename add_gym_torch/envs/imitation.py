@@ -10,10 +10,19 @@ masked reset and both observation passes, with the incremental motion-row
 window; for non-consecutive ``tar_obs_steps`` it composes ``step``,
 ``reset_where`` and ``compute_obs`` on the same presampled draws) and
 ``rollout_step`` (the same, drawing its own resets; evaluation's step).
+
+Inside ``ImitationEnv.graphed_steps`` (the train rollout's scope),
+``rollout_step_cached`` through the CUDA kernel runs its body as one CUDA graph
+(``_StepGraph``): captured at the scope's first step, replayed at every
+later one, released when the scope closes.  The env's first step at a
+shape runs eagerly on the capture stream instead, and the graph is captured
+at the next.
 """
 
 from __future__ import annotations
 
+import gc
+from contextlib import contextmanager
 from dataclasses import dataclass, fields, replace
 from typing import Sequence
 
@@ -27,6 +36,7 @@ from add_gym_torch.envs.reward import compute_reward
 from add_gym_torch.learning import sampler as sampler_mod
 from add_gym_torch.motion.motion_lib import MotionLib
 from add_gym_torch.parallel.mesh import EnvShard
+from add_gym_torch.physics import cuda_step as cs
 from add_gym_torch.physics.engine import EngineParams, SimState, default_state
 from add_gym_torch.physics.fused_step import FusedModelConstants
 from add_gym_torch.physics.model import PhysicsModel
@@ -173,6 +183,15 @@ class ImitationEnv:
             [name not in contact_set for name in model.body_names], device=self.device
         )
         self.tar_steps = np.asarray(task.tar_obs_steps, np.int64)
+        # time offsets of the motion-row window relative to the current
+        # motion time: H history rows (oldest -> newest) then K target rows
+        H = task.num_disc_obs_steps
+        dt = self.ctrl_dt
+        win = -dt * torch.arange(H - 1, -1, -1, dtype=torch.float32, device=self.device)
+        if task.enable_tar_obs and len(self.tar_steps):
+            tar = dt * torch.as_tensor(self.tar_steps, dtype=torch.float32, device=self.device)
+            win = torch.cat([win, tar])
+        self.window_offsets = win
         self.seg_sizes = motion.lengths / task.sampler_num_segments
         self.min_start_time = (task.num_disc_obs_steps - 1) * self.ctrl_dt
         lim = torch.as_tensor(model.dof_limit, device=self.device)
@@ -185,6 +204,14 @@ class ImitationEnv:
         scale = 1.4 * np.maximum(np.abs(lim[:, 1] - mid), np.abs(lim[:, 0] - mid))
         self.action_low = mid - scale
         self.action_high = mid + scale
+
+        self._graph_scope = False    # graphed_steps is open
+        self._step_graph = None      # the scope's graph, once captured
+        self._graph_stream = None    # the side stream graphs are captured on
+        self._graph_warm = set()     # shapes the body has run at on that stream
+        # the last graph captured: it keeps the private memory pool alive
+        # for the next capture to share
+        self._graph_keeper = None
 
     # ------------------------------------------------------------- obs sizes
 
@@ -300,18 +327,6 @@ class ImitationEnv:
             track_root=t.track_root,
         )
 
-    def _window_offsets(self, dtype=torch.float32):
-        """Time offsets of the motion-row window relative to the current
-        motion time: H history rows (oldest -> newest) then K target rows."""
-        H = self.task.num_disc_obs_steps
-        K = len(self.tar_steps) if self.task.enable_tar_obs else 0
-        dt = self.ctrl_dt
-        win = -dt * torch.arange(H - 1, -1, -1, dtype=dtype, device=self.device)
-        if K:
-            tar = dt * torch.as_tensor(self.tar_steps, dtype=dtype, device=self.device)
-            return torch.cat([win, tar])
-        return win
-
     @property
     def _aux_shiftable(self) -> bool:
         """The incremental row window needs tar_obs_steps = 1..K."""
@@ -321,7 +336,7 @@ class ImitationEnv:
     def motion_aux(self, state: EnvState):
         """Motion-row cache [N, H+K, R] aligned to the current motion time."""
         mt = self.motion_times(state)
-        times = mt[:, None] + self._window_offsets(mt.dtype)[None, :]
+        times = mt[:, None] + self.window_offsets[None, :]
         ids = state.motion_ids[:, None].expand(times.shape)
         return self.motion.get_motion_rows(ids, times)
 
@@ -384,7 +399,70 @@ class ImitationEnv:
         ``env.reward_done``, ``env.reset`` and ``env.obs``; the composed
         step has ``env.physics`` (all of :meth:`step`), ``env.reset`` and
         ``env.obs``.
+
+        Inside :meth:`graphed_steps`, with the kernel backend on CUDA
+        tensors and the incremental window, the body runs as one CUDA graph
+        (``_StepGraph``, the kernel launched inside it: spans
+        ``env.capture`` at the first step, whose body's spans nest in it,
+        and ``env.graph`` at every step); every tensor it returns is fresh
+        for the call.  The env's first step at a shape runs eagerly on the
+        capture stream (:meth:`_warm_step`), and the graph is captured at the
+        next.  Elsewhere it runs eagerly.  The function attributes
+        ``captures``, ``replays`` and ``eager`` count graphs captured, steps
+        replayed and steps run eagerly.
         """
+        args = (state, pd_target, aux, ids_f, times_f, dr)
+        if self._graph_scope and self.kernel and pd_target.is_cuda and self._aux_shiftable:
+            key = (tuple(pd_target.shape), tuple(aux.shape))
+            if self._step_graph is None:
+                if key not in self._graph_warm:
+                    return self._warm_step(args, key)
+                self._step_graph = _StepGraph(self, args, key)
+            if self._step_graph.key == key:
+                return self._step_graph(args)
+        _step_counts.eager += 1
+        return self._rollout_step_body(*args)
+
+    def _warm_step(self, args, key):
+        """The step run eagerly on the env's capture stream, the env's first
+        at these shapes (torch's graph notes ask for a warm-up on the side
+        stream): it builds the kernel, fills the caches of device constants,
+        which a capture cannot copy from the host, and gives the stream its
+        cuBLAS workspace.  Its outputs are the step's."""
+        dev = args[1].device
+        if self._graph_stream is None:
+            self._graph_stream = torch.cuda.Stream(dev)
+        stream, current = self._graph_stream, torch.cuda.current_stream(dev)
+        stream.wait_stream(current)
+        # the outputs' memory returns to this stream's free blocks; every
+        # later use of the stream first waits for the current one, so none
+        # is reused while the current stream still reads it
+        with torch.cuda.stream(stream):
+            out = self._rollout_step_body(*args)
+        current.wait_stream(stream)
+        self._graph_warm.add(key)
+        _step_counts.eager += 1
+        return out
+
+    @contextmanager
+    def graphed_steps(self):
+        """The scope of one train rollout: inside it :meth:`rollout_step_cached`
+        through the kernel on CUDA tensors replays one CUDA graph of its
+        body, captured at its first call (a call of other shapes runs
+        eagerly).  The graph's buffers are released when the scope closes;
+        its private memory pool, and the blocks the pool has reserved, stay
+        for the next scope's capture.  A nested scope is the outer one."""
+        if self._graph_scope:
+            yield
+            return
+        self._graph_scope = True
+        try:
+            yield
+        finally:
+            self._graph_scope, self._step_graph = False, None
+
+    def _rollout_step_body(self, state: EnvState, pd_target, aux, ids_f, times_f, dr):
+        """The body of :meth:`rollout_step_cached`, run eagerly or captured."""
         task = self.task
         N = state.time.shape[0]
         H = task.num_disc_obs_steps
@@ -444,7 +522,7 @@ class ImitationEnv:
             reset = done != int(DoneFlags.NULL)
             ids3 = torch.where(reset, ids_f, ids)
             mt3 = torch.where(reset, times_f, mt)
-            timesB = times_f[:, None] + self._window_offsets(mt.dtype)[None, :]
+            timesB = times_f[:, None] + self.window_offsets[None, :]
             idsB = ids_f[:, None].expand(timesB.shape)
             rowsB = self.motion.get_motion_rows(idsB, timesB)   # [N, H+K, R]
             fresh = self._fresh_state(ids_f, times_f, self.motion.split_rows(rowsB[:, :H]), dr)
@@ -642,3 +720,223 @@ class ImitationEnv:
         dr = {k: to_device(v, self.device, torch.float32) for k, v in dr.items()}
         fresh = self._fresh_state(ids, times, self._demo_window(ids, times), dr)
         return _where_env(mask, fresh, state)
+
+
+# the paths of rollout_step_cached, counted as function attributes (as
+# cuda_step.launches): graphs captured, steps replayed, steps run eagerly
+_step_counts = ImitationEnv.rollout_step_cached
+_step_counts.captures = 0
+_step_counts.replays = 0
+_step_counts.eager = 0
+
+
+def _launch_counts() -> tuple:
+    return (cs.cuda_step.launches, cs.cuda_step.dr_launches, cs.cuda_step.np_launches,
+            cs.sharded_cuda_step.launches)
+
+
+def _set_launch_counts(c) -> None:
+    (cs.cuda_step.launches, cs.cuda_step.dr_launches, cs.cuda_step.np_launches,
+     cs.sharded_cuda_step.launches) = c
+
+
+def _leaves(x, like=None) -> list:
+    """The tensors of a nest of tuples, dicts and states, in a fixed order:
+    that of ``like`` where given (a nest of the same fields and keys)."""
+    like = x if like is None else like
+    if isinstance(like, torch.Tensor):
+        return [x]
+    if isinstance(like, (SimState, EnvState)):
+        return [t for f in fields(like) for t in _leaves(getattr(x, f.name), getattr(like, f.name))]
+    if isinstance(like, dict):
+        return [t for k, v in like.items() for t in _leaves(x[k], v)]
+    return [t for a, b in zip(x, like) for t in _leaves(a, b)]
+
+
+def _builder(like):
+    """A function, made once, that builds a nest shaped as ``like`` (a nest
+    as :func:`_leaves` reads it) from an iterator over its tensors."""
+    if isinstance(like, torch.Tensor):
+        return next
+    if isinstance(like, (SimState, EnvState)):
+        cls, parts = type(like), [_builder(getattr(like, f.name)) for f in fields(like)]
+        return lambda it: cls(*[part(it) for part in parts])
+    if isinstance(like, dict):
+        keys, parts = list(like), [_builder(v) for v in like.values()]
+        return lambda it: dict(zip(keys, [part(it) for part in parts]))
+    parts = [_builder(v) for v in like]
+    return lambda it: tuple([part(it) for part in parts])
+
+
+def _is_dense(t) -> bool:
+    """Whether ``t`` fills one gap-free block of memory (dims in any order)."""
+    expect = 1
+    for stride, size in sorted((st, n) for n, st in zip(t.shape, t.stride()) if n != 1):
+        if stride != expect:
+            return False
+        expect *= size
+    return True
+
+
+def _static_like(t):
+    """An uninitialised tensor of ``t``'s shape, dtype and device, with its
+    strides where ``t`` is dense."""
+    if _is_dense(t):
+        return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device=t.device)
+    return torch.empty(t.shape, dtype=t.dtype, device=t.device)
+
+
+def _words(t):
+    """``t`` as 32-bit words, for batched copies; None where its elements
+    or layout have no such view."""
+    if t.dtype == torch.int32:
+        return t
+    if t.element_size() == 4 or (t.element_size() == 8 and t.dim() and t.stride(-1) == 1):
+        return t.view(torch.int32)
+    return None
+
+
+def _word_span(storage, lo: int, hi: int, device):
+    """Bytes ``[lo, hi)`` of ``storage`` as a flat int32 tensor."""
+    return torch.empty(0, dtype=torch.int32, device=device).set_(
+        storage, lo // 4, ((hi - lo) // 4,), (1,))
+
+
+def _copyable(x, s) -> bool:
+    """Whether ``x`` goes into the static ``s`` as words of the same layout
+    (given that ``s`` has a word view)."""
+    return x.dtype == s.dtype and x.shape == s.shape and x.stride() == s.stride()
+
+
+class _StepGraph:
+    """:meth:`ImitationEnv.rollout_step_cached`'s body as one CUDA graph,
+    for one scope of :meth:`ImitationEnv.graphed_steps` and one shape.
+
+    Capture, on the env's capture stream (where the body has run at these
+    shapes, :meth:`ImitationEnv._warm_step`): the inputs get static buffers
+    of their shapes, dtypes and strides, loaded with the first step's
+    inputs, and the body is captured on them,
+    with Python's garbage collector paused, into the private memory pool of
+    the env's last graph (a fresh pool at the first capture; a pool is kept
+    alive by a graph that uses it).  Capture executes nothing, so the first
+    call replays straight after it.
+
+    A call copies its inputs into the static buffers in one batched copy of
+    32-bit words, replays the graph, and copies the outputs into fresh
+    memory in one more, with the eager step's shapes and strides (outputs
+    that share a storage, as the two obs passes do, share a fresh one): no
+    returned tensor is written by a later replay, and each pins what the
+    eager step's would.  ``cuda_step``'s launch counters count what runs on
+    the card: nothing at capture, and at each replay what the body launched
+    at capture.
+    """
+
+    def __init__(self, env: ImitationEnv, args, key):
+        self.device = args[1].device
+        self.key = key
+        it = iter([_static_like(t) for t in _leaves(args)])
+        self.inputs = _builder(args)(it)
+        self.static = _leaves(self.inputs)
+        self.static_words = [_words(t) for t in self.static]
+        self._load(args)             # the body is captured on real inputs
+
+        with span("env.capture"):
+            stream = env._graph_stream
+            current = torch.cuda.current_stream(self.device)
+            stream.wait_stream(current)
+            counts = _launch_counts()
+            with torch.cuda.stream(stream):
+                self.graph = torch.cuda.CUDAGraph()
+                keeper = env._graph_keeper
+                # no garbage collection during the capture: a collected
+                # object's CUDA calls (a dead env's graph being destroyed)
+                # would invalidate it
+                collecting = gc.isenabled()
+                gc.disable()
+                self.graph.capture_begin(pool=keeper.pool() if keeper is not None else None)
+                try:
+                    self.outs = env._rollout_step_body(*self.inputs)
+                finally:
+                    self.graph.capture_end()
+                    if collecting:
+                        gc.enable()
+            current.wait_stream(stream)
+            env._graph_keeper = self.graph
+            self.launches = tuple(b - a for a, b in zip(counts, _launch_counts()))
+            _set_launch_counts(counts)
+            _step_counts.captures += 1
+        self._plan_outputs()
+
+    def _plan_outputs(self) -> None:
+        """How the outputs are copied out.  An output alone in its storage
+        and filling it (``whole``) is copied into a fresh tensor of its
+        shape and strides; 4-byte outputs that share a storage (``spans``)
+        into a fresh copy of the bytes they cover, and viewed there; any
+        other is cloned."""
+        outs = _leaves(self.outs)
+        self.whole, self.spans, self.cloned, span_src = [], [], [], []
+        by_storage = {}
+        for i, t in enumerate(outs):
+            if t.numel() == 0:
+                self.cloned.append(i)
+                continue
+            isz = t.element_size()
+            lo = t.storage_offset() * isz
+            hi = lo + isz * (1 + sum((n - 1) * st for n, st in zip(t.shape, t.stride())))
+            s = by_storage.setdefault(t.untyped_storage().data_ptr(),
+                                      [lo, hi, t.untyped_storage(), []])
+            s[0], s[1] = min(s[0], lo), max(s[1], hi)
+            s[3].append(i)
+        self.n_out = len(outs)
+        for lo, hi, storage, members in by_storage.values():
+            t = outs[members[0]]
+            if (len(members) == 1 and _words(t) is not None and _is_dense(t)
+                    and hi - lo == t.numel() * t.element_size()):
+                self.whole.append((members[0], t.shape, t.stride(), t.dtype))
+                continue
+            if any(outs[i].element_size() != 4 for i in members):
+                self.cloned += members
+                continue
+            views = []
+            for i in members:
+                u = outs[i]
+                off = (u.storage_offset() * u.element_size() - lo) // u.element_size()
+                views.append((i, u.dtype, u.shape, u.stride(), off))
+            self.spans.append(((hi - lo) // 4, views))
+            span_src.append(_word_span(storage, lo, hi, self.device))
+        self.src = [_words(outs[i]) for i, _, _, _ in self.whole] + span_src
+        self.out_leaves = outs if self.cloned else None
+        self.build = _builder(self.outs)
+
+    def _load(self, args) -> None:
+        """The step's inputs into the static buffers."""
+        dst, src = [], []
+        for s, w, x in zip(self.static, self.static_words, _leaves(args, self.inputs)):
+            if w is not None and _copyable(x, s):
+                dst.append(w)
+                src.append(_words(x))
+            else:
+                s.copy_(x)
+        torch._foreach_copy_(dst, src)
+
+    def __call__(self, args):
+        with span("env.graph"):
+            self._load(args)
+            self.graph.replay()
+            _set_launch_counts(tuple(a + b for a, b in zip(_launch_counts(), self.launches)))
+            _step_counts.replays += 1
+
+            dev, leaves = self.device, [None] * self.n_out
+            dst = []
+            for i, shape, stride, dtype in self.whole:
+                leaves[i] = torch.empty_strided(shape, stride, dtype=dtype, device=dev)
+                dst.append(_words(leaves[i]))
+            for n, views in self.spans:
+                words = torch.empty(n, dtype=torch.int32, device=dev)
+                dst.append(words)
+                for i, dtype, shape, stride, off in views:
+                    leaves[i] = words.view(dtype).as_strided(shape, stride, off)
+            torch._foreach_copy_(dst, self.src)
+            for i in self.cloned:
+                leaves[i] = self.out_leaves[i].clone()
+            return self.build(iter(leaves))

@@ -389,6 +389,10 @@ class ADDAgent:
         (the parity tests inject the JAX package's draws); ``dr_f``, the
         reset perturbations of domain randomization, is a dict of [T, N].
 
+        The steps run inside ``env.graphed_steps()``: on the card the env's
+        control step is one CUDA graph, captured at the first step and
+        replayed at the others.
+
         Returns ``(env_state, obs, traj, obs_stats)``: traj tensors are
         [T, N, ...]; obs_stats = (count, sum[obs_dim], sum_sq[obs_dim]).
         """
@@ -419,38 +423,39 @@ class ADDAgent:
             fixed_logstd = (torch.full((N, env.num_dofs), self.logstd, device=dev)
                             if cfg.actor_std_type == "fixed" else None)
         steps = []
-        for t in range(num_steps):
-            with span("rollout.step"):
-                with span("policy"):
-                    norm_obs = norm.normalize(ts.obs_norm, obs)
-                    mean, logstd = self._actor(net, norm_obs)
-                    if logstd is None:
-                        logstd = fixed_logstd
-                    a_rand = mean + torch.exp(logstd) * noise[t]
-                    norm_a = torch.where(bern[t] == 1.0, a_rand, mean)
-                    a_logp = dist.log_prob(mean, logstd, norm_a)
-                    action = norm_a * self.a_std + self.a_mean
+        with env.graphed_steps():
+            for t in range(num_steps):
+                with span("rollout.step"):
+                    with span("policy"):
+                        norm_obs = norm.normalize(ts.obs_norm, obs)
+                        mean, logstd = self._actor(net, norm_obs)
+                        if logstd is None:
+                            logstd = fixed_logstd
+                        a_rand = mean + torch.exp(logstd) * noise[t]
+                        norm_a = torch.where(bern[t] == 1.0, a_rand, mean)
+                        a_logp = dist.log_prob(mean, logstd, norm_a)
+                        action = norm_a * self.a_std + self.a_mean
 
-                    count = count + float(N)
-                    s1 = s1 + obs.sum(0)
-                    s2 = s2 + (obs * obs).sum(0)
+                        count = count + float(N)
+                        s1 = s1 + obs.sum(0)
+                        s2 = s2 + (obs * obs).sum(0)
 
-                with span("env.step"):
-                    env_state, obs_after, aux, step_out = env.rollout_step_cached(
-                        env_state, action, aux, ids_f[t], times_f[t],
-                        {k: v[t] for k, v in dr_f.items()})
-                with span("rollout.record"):
-                    next_obs = step_out.pop("next_obs")
-                    if cfg.disc_mode != "amp":
-                        step_out["disc_diff"] = (step_out.pop("disc_obs_demo")
-                                                 - step_out.pop("disc_obs"))
-                    steps.append(dict(
-                        norm_obs=norm_obs.to(out_dtype),
-                        norm_next=norm.normalize(ts.obs_norm, next_obs).to(out_dtype),
-                        norm_a=norm_a, a_logp=a_logp, rand_mask=bern[t][:, 0],
-                        **step_out,
-                    ))
-                obs = obs_after
+                    with span("env.step"):
+                        env_state, obs_after, aux, step_out = env.rollout_step_cached(
+                            env_state, action, aux, ids_f[t], times_f[t],
+                            {k: v[t] for k, v in dr_f.items()})
+                    with span("rollout.record"):
+                        next_obs = step_out.pop("next_obs")
+                        if cfg.disc_mode != "amp":
+                            step_out["disc_diff"] = (step_out.pop("disc_obs_demo")
+                                                     - step_out.pop("disc_obs"))
+                        steps.append(dict(
+                            norm_obs=norm_obs.to(out_dtype),
+                            norm_next=norm.normalize(ts.obs_norm, next_obs).to(out_dtype),
+                            norm_a=norm_a, a_logp=a_logp, rand_mask=bern[t][:, 0],
+                            **step_out,
+                        ))
+                    obs = obs_after
         with span("rollout.stack"):
             traj = {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
         return env_state, obs, traj, (count, s1, s2)

@@ -233,8 +233,12 @@ def _device_model(fc: FusedModelConstants, params: EngineParams, device, per_env
 
 def per_env_rows(params: EngineParams, n: int, nd: int, device):
     """The per-env variant's extra input rows [2 nd + 2, N]: kp, kv, mu, ms
-    (shared values broadcast over the envs, ms = 1 without a mass scale)."""
+    (shared values broadcast over the envs, ms = 1 without a mass scale).
+    A Python number becomes its rows on the device directly (a fill, no
+    copy from the host: a CUDA graph can capture it)."""
     def rows(x, k):
+        if isinstance(x, (int, float)):
+            return torch.full((k, n), float(x), dtype=torch.float32, device=device)
         x = torch.as_tensor(x, dtype=torch.float32, device=device)
         if x.ndim == 2:                      # per-env gains [N, nd]
             return x.T

@@ -37,6 +37,7 @@ from add_gym_torch.physics.engine import (
 )
 from add_gym_torch.physics.model import PhysicsModel
 from add_gym_torch.physics.narrowphase import touched_bodies
+from add_gym_torch.physics.spatial import device_const
 
 # --------------------------------------------------------------------------
 # stacked helpers over [..., 3, N] vectors and [..., 3, 3, N] matrices
@@ -615,7 +616,8 @@ def compute_np_ext(fc: FusedModelConstants, params: EngineParams, dt, state: Sim
     body_pos, body_rot = forward_kinematics(model, state)
     omega_w, v_origin_w = _body_world_velocities(model, state, body_rot)
     f_ext = narrowphase_f_ext(model, params, body_pos, body_rot, omega_w, v_origin_w, dt)
-    rows = f_ext[:, torch.as_tensor(fc.np_bodies, device=f_ext.device)].permute(1, 2, 0)
+    bodies = device_const(fc, "np_bodies", lambda: fc.np_bodies, f_ext, torch.long)
+    rows = f_ext[:, bodies].permute(1, 2, 0)
     return {int(b): (rows[j, 0:3], rows[j, 3:6]) for j, b in enumerate(fc.np_bodies)}
 
 

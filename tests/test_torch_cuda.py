@@ -27,10 +27,15 @@ bits for every instance; it matches the plain step at N = 1, 37, 4000 and
 4096 (less than a block, ragged, full); and a model of ``AGT_MAX_BODIES``
 = 32 bodies runs while 33 are refused.  A traced ``train_iter`` of
 ``train`` and of ``dr_pod`` at 64 envs: no device row carries a program
-span's name, and each kernel's launch row lies inside an ``env.physics``
-span.
+span's name, and each kernel's launch row (the env step's graph launch)
+lies inside an ``env.graph`` span.  ``rollout_lean``'s env step as one
+CUDA graph (main variant, per-env with latency and mass, narrowphase
+rows): bit for bit equal to the eager step over two chained 8-step
+rollouts with resets, one capture a rollout, its launches counted, its
+buffers freed.
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -39,6 +44,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from add_gym_torch.builder import build_agent, build_env
+from add_gym_torch.envs import imitation
+from add_gym_torch.envs.imitation import ImitationEnv
 from add_gym_torch.learning.add_agent import state_digest
 from add_gym_torch.learning.runner import Trainer
 from add_gym_torch.parallel.mesh import EnvShard
@@ -534,13 +541,111 @@ def test_trainer_video_interval_on_card(paths, tmp_path):
     t.close()
 
 
+GRAPH_VARIANTS = dict(main=("train", [], "launches"),
+                      per_env=("dr_pod", [], "dr_launches"),
+                      np=("train", ["engine.general_narrowphase=true"], "np_launches"))
+
+
+def _graph_case(paths, variant, n, steps):
+    config, overrides, counter = GRAPH_VARIANTS[variant]
+    cfg = load_config(config, overrides)
+    cfg["robot"]["asset_path"] = paths["g1"]
+    cfg["task"]["motion_file"] = paths["clip"]
+    cfg["engine"]["num_envs"] = n
+    cfg["agent"]["steps_per_iter"] = steps
+    for k in ("actor_net", "critic_net", "disc_net"):
+        cfg["agent"][k] = "fc_2layers_64units"
+    env = build_env(cfg, device="cuda")
+    assert env.kernel
+    agent = build_agent(cfg, env)
+    ts = agent.init_train_state()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    es = env.reset_where(env.init_state(n), torch.ones(n, dtype=torch.bool, device="cuda"),
+                         ts.sampler, generator=g)
+    # every third env's episode ends within the first steps: the reset path runs
+    last = cfg["task"]["max_episode_length"] - 0.025
+    es = dataclasses.replace(es, time=torch.where(
+        torch.arange(n, device="cuda") % 3 == 0, torch.full_like(es.time, last), es.time))
+    draws = [agent.sample_rollout_draws(ts, n, steps, g) for _ in range(2)]
+    return env, agent, ts, es, env.compute_obs(es), draws, counter
+
+
+def _counts():
+    f = imitation._step_counts
+    return f.captures, f.replays, f.eager
+
+
+@pytest.mark.parametrize("variant", sorted(GRAPH_VARIANTS))
+def test_graphed_rollout_matches_eager_bitwise(paths, variant, monkeypatch):
+    """Two chained ``rollout_lean`` of 8 steps at 64 envs, with forced
+    resets, in the env's graph scope and with a null scope in its place, on
+    the same draws: the main kernel variant (``train``), the per-env one
+    with latency and mass (``dr_pod``) and the narrowphase rows.  Every
+    traj field, the final ``EnvState``, obs and obs statistics are equal
+    bit for bit; the kernel's launch counter advances by the steps either
+    way; the graph is captured once a rollout and replayed at every step;
+    the memory the rollouts leave allocated is the eager rollouts' within
+    1 MiB (the scope frees its buffers).  Each way runs one rollout first,
+    so that what is made once a process or stream (a stream's cuBLAS
+    workspace, which the narrowphase's matmuls take on the capture stream)
+    is not counted; in the scope its first step is the env's warm-up step,
+    run eagerly on the capture stream, and the graph is captured at its
+    second, the launch counter advancing by the steps there too."""
+    n, steps = 64, 8
+    env, agent, ts, es, obs, draws, counter = _graph_case(paths, variant, n, steps)
+    if variant == "np":
+        assert len(env._fc.np_bodies)
+    results, grown, first = {}, {}, {}
+    for mode in ("eager", "graph"):
+        if mode == "eager":
+            monkeypatch.setattr(ImitationEnv, "graphed_steps",
+                                lambda self: contextlib.nullcontext())
+        else:
+            monkeypatch.undo()
+        counts0, launches0 = _counts(), getattr(cs.cuda_step, counter)
+        first[mode] = agent.rollout_lean(ts, es, obs, steps, draws=draws[0])[2]
+        assert getattr(cs.cuda_step, counter) - launches0 == steps, mode
+        got = tuple(b - a for a, b in zip(counts0, _counts()))
+        assert got == ((0, 0, steps) if mode == "eager" else (1, steps - 1, 1)), mode
+        torch.cuda.synchronize()
+        mem0, counts0, launches0 = (torch.cuda.memory_allocated(), _counts(),
+                                    getattr(cs.cuda_step, counter))
+        out = []
+        state, o = es, obs
+        for d in draws:
+            state, o, traj, stats = agent.rollout_lean(ts, state, o, steps, draws=d)
+            out.append((traj, stats))
+        out.append((state, o))
+        torch.cuda.synchronize()
+        grown[mode] = torch.cuda.memory_allocated() - mem0
+        assert getattr(cs.cuda_step, counter) - launches0 == 2 * steps, mode
+        got = tuple(b - a for a, b in zip(counts0, _counts()))
+        assert got == ((0, 0, 2 * steps) if mode == "eager" else (2, 2 * steps, 0)), mode
+        results[mode] = out
+    assert all(torch.equal(first["eager"][k], first["graph"][k]) for k in first["eager"])
+    e, g = results["eager"], results["graph"]
+    for (te, se), (tg, sg) in zip(e[:2], g[:2]):
+        assert set(te) == set(tg)
+        for k in te:
+            assert torch.equal(te[k], tg[k]), k
+        for a, b in zip(se, sg):
+            assert torch.equal(a, b)
+    assert int((e[0][0]["done"] != 0).sum()) >= n // 3
+    assert all(torch.equal(a, b) for a, b in zip(imitation._leaves(e[2][0]),
+                                                  imitation._leaves(g[2][0])))
+    assert torch.equal(e[2][1], g[2][1])
+    assert abs(grown["graph"] - grown["eager"]) <= 2**20, grown
+
+
 @pytest.mark.parametrize("config", ["train", "dr_pod"])
 def test_traced_train_iter_spans_on_card(paths, config):
     """One traced ``train_iter`` at 64 envs x 4 steps (after an untraced
     one): no device-typed event of the trace carries the name of a program
     span or of the anchor (``utils.trace``), the spans mapped through the
-    anchor hold the 4 control steps, and the launch row of every
-    ``agt_control_step`` kernel lies inside an ``env.physics`` span."""
+    anchor hold the 4 control steps, one ``env.capture`` (the env step's
+    graph, captured under the profiler) and 4 ``env.graph`` spans, and the
+    launch row of every ``agt_control_step`` kernel (the graph's launch)
+    lies inside an ``env.graph`` span."""
     n, steps = 64, 4
     cfg = load_config(config)
     cfg["robot"]["asset_path"] = paths["g1"]
@@ -570,12 +675,14 @@ def test_traced_train_iter_spans_on_card(paths, config):
     placed = trace.place(records, [(e.start_ns(), e.end_ns()) for e in host
                                    if e.name() == trace.ANCHOR])
     assert sum(r[0] == "rollout.step" for r in placed) == steps
-    physics = [(s, e) for name, s, e, _, _ in placed if name == "env.physics"]
+    assert sum(r[0] == "env.capture" for r in placed) == 1
+    graphs = [(s, e) for name, s, e, _, _ in placed if name == "env.graph"]
+    assert len(graphs) == steps
     kernels = [e for e in device if "agt_control_step" in e.name()]
     assert len(kernels) == steps
     launches = {e.correlation_id(): e for e in host if e.name().startswith(("cuda", "cu"))}
     for k in kernels:
         launch = launches.get(k.correlation_id()) or launches.get(k.linked_correlation_id())
         assert launch is not None, (k.name(), k.correlation_id(), k.linked_correlation_id())
-        assert any(s <= launch.start_ns() and launch.end_ns() <= e for s, e in physics), \
-            (launch.name(), launch.start_ns(), physics)
+        assert any(s <= launch.start_ns() and launch.end_ns() <= e for s, e in graphs), \
+            (launch.name(), launch.start_ns(), graphs)

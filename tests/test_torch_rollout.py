@@ -17,9 +17,18 @@ and torch round its matmuls at other places: the action mean differs by a
 few bf16 ulps of the hidden activations, which moves the actions, and the
 physics carries that forward, hence rtol = atol = 2e-2 there (recorded
 normalized obs are bf16 themselves).
+
+The env's graph scope on the CPU: ``rollout_lean`` opens
+``ImitationEnv.graphed_steps``, and on CPU tensors the step runs eagerly in
+it, bit for bit as with a null scope.  The warm-up step and
+``_StepGraph``'s buffers (inputs copied in, outputs copied out) are held to
+the eager body with a stand-in for the CUDA graph that reruns the captured
+body.
 """
 
+import contextlib
 import dataclasses
+import gc
 
 import numpy as np
 import jax
@@ -31,6 +40,8 @@ from add_gym_tpu.builder import build_agent as jax_build_agent
 from add_gym_tpu.builder import build_env as jax_build_env
 from add_gym_tpu.utils.config import load_config as jax_load_config
 from add_gym_torch.builder import build_agent, build_env
+from add_gym_torch.envs import imitation
+from add_gym_torch.envs.imitation import ImitationEnv
 from add_gym_torch.learning.convert import from_jax
 from add_gym_torch.physics import testing as fx
 from add_gym_torch.utils.config import load_config
@@ -147,3 +158,158 @@ def test_rollout_lean_matches_jax(tmp_path, mixed, tol):
             rtol=tol, atol=tol, err_msg=f,
         )
     np.testing.assert_array_equal(tes.motion_ids.numpy(), np.asarray(jes.motion_ids))
+
+
+# ---------------------------------------------------------------- the graph scope
+
+
+def _port_case(tmp_path, n=N, steps=T):
+    mjcf = fx.write_g1_fixture(str(tmp_path))
+    clip = fx.write_motion_csv(str(tmp_path / "clip.motion"), seed=5, num_frames=120)
+    cfg = _cfg(load_config, mjcf, clip, False)
+    cfg["engine"]["num_envs"] = n
+    cfg["agent"]["steps_per_iter"] = steps
+    env = build_env(cfg, device="cpu")
+    agent = build_agent(cfg, env)
+    ts = agent.init_train_state()
+    g = torch.Generator().manual_seed(2)
+    es = env.reset_where(env.init_state(n), torch.ones(n, dtype=torch.bool), ts.sampler,
+                         generator=g)
+    # every other episode ends on the first step: the reset path runs
+    last = cfg["task"]["max_episode_length"] - 0.005
+    es = dataclasses.replace(es, time=torch.where(torch.arange(n) % 2 == 0, last, 0.0))
+    return env, agent, ts, es, env.compute_obs(es), agent.sample_rollout_draws(ts, n, steps, g)
+
+
+def _step_counts():
+    f = imitation._step_counts
+    return f.captures, f.replays, f.eager
+
+
+def test_graph_scope_on_cpu_runs_eagerly(tmp_path, monkeypatch):
+    """``rollout_lean`` opens the env's graph scope; on CPU tensors
+    ``rollout_step_cached`` runs its body eagerly inside it (the counters
+    read T eager steps, no capture, no replay), and the rollout's outputs
+    are those of the same rollout with a null scope in its place, bit for
+    bit."""
+    env, agent, ts, es, obs, draws = _port_case(tmp_path)
+    scoped = []
+    body = ImitationEnv._rollout_step_body
+
+    def spy(self, *args):
+        scoped.append(self._graph_scope)
+        return body(self, *args)
+
+    monkeypatch.setattr(ImitationEnv, "_rollout_step_body", spy)
+    c0 = _step_counts()
+    got = agent.rollout_lean(ts, es, obs, T, draws=draws)
+    assert tuple(b - a for a, b in zip(c0, _step_counts())) == (0, 0, T)
+    assert scoped == [True] * T and not env._graph_scope
+    monkeypatch.setattr(ImitationEnv, "graphed_steps", lambda self: contextlib.nullcontext())
+    want = agent.rollout_lean(ts, es, obs, T, draws=draws)
+    assert scoped == [True] * T + [False] * T
+    assert got[2].keys() == want[2].keys()
+    for k in want[2]:
+        assert torch.equal(got[2][k], want[2][k]), k
+    assert (want[2]["done"][0] != 0).any()
+    assert torch.equal(got[1], want[1])
+    for a, b in zip(got[3], want[3]):
+        assert torch.equal(a, b)
+    for a, b in zip(imitation._leaves(got[0]), imitation._leaves(want[0])):
+        assert torch.equal(a, b)
+
+
+class _StandInGraph:
+    """``torch.cuda.CUDAGraph`` on the CPU: the body run under capture
+    computes its outputs and then poisons them (a capture computes
+    nothing); a replay runs the body again on the captured inputs and
+    writes into the captured outputs."""
+
+    capturing = []
+    collecting = []                 # the garbage collector's state at each capture
+
+    def capture_begin(self, pool=None):
+        _StandInGraph.capturing.append(self)
+        _StandInGraph.collecting.append(gc.isenabled())
+
+    def capture_end(self):
+        _StandInGraph.capturing.pop()
+
+    def pool(self):
+        return (0, 1)
+
+    def replay(self):
+        for a, b in zip(imitation._leaves(self.outs), imitation._leaves(self.body(*self.args))):
+            a.copy_(b)
+
+
+class _StandInStream:
+    def wait_stream(self, other):
+        pass
+
+
+def test_step_graph_buffers_with_a_stand_in_graph(tmp_path, monkeypatch):
+    """``_StepGraph``'s buffers on the CPU with a stand-in for the CUDA
+    graph (``_StandInGraph``), after the env's warm-up step: the warm-up
+    step and then 6 chained steps with resets each return what the eager
+    body returns on the same inputs, bit for bit, with the eager outputs'
+    shapes and strides; a returned tensor is not written by a later
+    replay; an input state it did not return is loaded as well; the
+    launch counter counts the warm-up step's launch and each replay's, not
+    the capture's; the garbage collector is paused during the capture and
+    running again after it."""
+    steps = 6
+    env, agent, ts, es, obs, draws = _port_case(tmp_path, steps=steps)
+    _, _, ids_f, times_f = draws
+    dr = env.sample_dr(N)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _StandInGraph)
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: _StandInStream())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _StandInStream())
+    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
+    real = env._rollout_step_body
+    monkeypatch.setattr(imitation.cs.cuda_step, "launches", 0)
+
+    def body(*args):
+        imitation.cs.cuda_step.launches += 1          # the kernel's launch
+        out = real(*args)
+        if _StandInGraph.capturing:
+            graph = _StandInGraph.capturing[-1]
+            graph.body, graph.args, graph.outs = real, args, out
+            inputs = {t.untyped_storage().data_ptr() for t in imitation._leaves(args)}
+            for t in imitation._leaves(out):
+                if t.untyped_storage().data_ptr() not in inputs:
+                    t.fill_(-7)
+        return out
+
+    monkeypatch.setattr(env, "_rollout_step_body", body)
+    aux = env.motion_aux(es)
+    act = lambda s: s.sim.pd_target + 0.05
+    args = (es, act(es), aux, ids_f[0], times_f[0], dr)
+    c0 = _step_counts()
+    for a, b in zip(imitation._leaves(env._warm_step(args, "cpu")), imitation._leaves(real(*args))):
+        assert a.stride() == b.stride() and torch.equal(a, b)
+    assert imitation.cs.cuda_step.launches == 1
+    graph = imitation._StepGraph(env, args, "cpu")
+    assert imitation.cs.cuda_step.launches == 1
+    assert tuple(b - a for a, b in zip(c0, _step_counts())) == (1, 0, 1)
+    assert env._graph_warm == {"cpu"}
+    assert _StandInGraph.collecting == [False] and gc.isenabled()
+    state, kept = es, None
+    for t in range(steps):
+        args = (state, act(state), aux, ids_f[t], times_f[t], dr)
+        want = real(*args)
+        got = graph(args)
+        for a, b in zip(imitation._leaves(got), imitation._leaves(want)):
+            assert a.stride() == b.stride() and torch.equal(a, b), t
+        if t == 1:
+            kept = [x.clone() for x in imitation._leaves(got)], imitation._leaves(got)
+        state, aux = got[0], got[2]
+    assert tuple(b - a for a, b in zip(c0, _step_counts())) == (1, steps, 1)
+    assert imitation.cs.cuda_step.launches == 1 + steps
+    assert all(torch.equal(a, b) for a, b in zip(*kept))
+    assert not torch.equal(kept[1][0], state.sim.root_pos)
+    # a state the graph did not return
+    fresh = imitation._builder(state)(iter([x.clone() for x in imitation._leaves(state)]))
+    args = (fresh, act(fresh), aux.clone(), ids_f[0], times_f[0], dr)
+    for a, b in zip(imitation._leaves(graph(args)), imitation._leaves(real(*args))):
+        assert torch.equal(a, b)
