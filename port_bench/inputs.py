@@ -1,4 +1,5 @@
-"""The benchmark's inputs: the G1-shaped robot and a synthetic clip.
+"""The benchmark's inputs: a robot (by name, ``ROBOTS``) and a synthetic
+clip.
 
 A frozen copy of the port's fixture writers (``physics/testing.py`` at the
 commit that added this benchmark), so that later changes to the program
@@ -7,13 +8,19 @@ mocap clips are not in the repository; the fixture has the G1's 30
 bodies and 29 hinges, named and nested as the G1's MJCF names them, with
 link offsets, joint axes, ranges and masses close to the G1's, and the
 clip is a smooth 300-frame walk with joint oscillations from a numpy seed.
-Both files are written into a fixed directory of the checkout and read,
-as raw files, by the program and by the reference alike.
+``g1_dex3`` is a topology stand-in for the G1 with Dex3-1 hands: the same
+fixture with 7 hinges on each wrist, named and nested as Unitree's
+``g1_29dof_with_hand`` names them (44 bodies, 43 hinges, 13 levels), but
+with finger geometry and masses of its own, as the repository holds no
+Dex3-1 description.  Both files are written into a fixed directory of the
+checkout and read, as raw files, by the program and by the reference
+alike.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Callable, NamedTuple
 
 import numpy as np
 
@@ -192,6 +199,83 @@ def write_g1_fixture(directory: str) -> str:
     return _write(os.path.join(directory, "g1_shaped_fixture.xml"), g1_fixture_mjcf())
 
 
+# The Dex3-1 hand's three fingers, each a chain hung on <side>_wrist_yaw_link
+# (link as in _LEG; joint <side>_hand_<name>_joint).  The palm is the wrist-yaw
+# link's own box: a palm on a fixed joint compiles into its parent's geometry
+# in MJCF.  The repository holds no Dex3-1 description, so every offset, axis,
+# range, mass and box here is this fixture's own assumption, sized like a
+# small three-fingered hand: the hand's topology is Unitree's, its dynamics are
+# not, and a configuration on this robot lists the hand geometry as assumed; each range holds the clip's 0.15 rad swing about
+# 0.  The right hand mirrors y, so its x- and z-axis ranges swap sign.
+_HAND = [
+    [("hand_thumb_0", _Y, (-1.0472, 1.0472), (0.067, 0.003, 0.0), 0.086,
+      (0.0, 0.012, 0.0), (0.012, 0.012, 0.012), "hand"),
+     ("hand_thumb_1", _Z, (-0.7243, 1.0472), (-0.0025, 0.0193, 0.0), 0.056,
+      (0.0, 0.02, 0.0), (0.01, 0.02, 0.01), "hand"),
+     ("hand_thumb_2", _Z, (-0.5, 1.7453), (0.0, 0.0458, 0.0), 0.035,
+      (0.0, 0.018, 0.0), (0.009, 0.018, 0.009), "hand")],
+    [("hand_index_0", _Z, (-1.5708, 0.5), (0.1, 0.0046, 0.0285), 0.048,
+      (0.022, 0.0, 0.0), (0.022, 0.01, 0.009), "hand"),
+     ("hand_index_1", _Z, (-1.7453, 0.5), (0.0458, 0.0, 0.0), 0.029,
+      (0.018, 0.0, 0.0), (0.018, 0.009, 0.008), "hand")],
+    [("hand_middle_0", _Z, (-1.5708, 0.5), (0.1, 0.0046, -0.0285), 0.048,
+      (0.022, 0.0, 0.0), (0.022, 0.01, 0.009), "hand"),
+     ("hand_middle_1", _Z, (-1.7453, 0.5), (0.0458, 0.0, 0.0), 0.029,
+      (0.018, 0.0, 0.0), (0.018, 0.009, 0.008), "hand")],
+]
+_HAND_MIRRORED = {spec[0]: (-spec[2][1], -spec[2][0])
+                  for finger in _HAND for spec in finger if spec[1] != _Y}
+
+G1_DEX3_MOTION_JOINT_ORDER = MOTION_JOINT_ORDER + [
+    f"{side}_{spec[0]}_joint" for side in ("left", "right") for finger in _HAND for spec in finger
+]
+
+_HAND_CLASS = """    <default class="hand">
+      <joint damping="0.05" armature="0.01" frictionloss="0.05"/>
+    </default>
+"""
+
+
+def g1_dex3_fixture_mjcf() -> str:
+    """MJCF text of a topology stand-in for the G1 with Dex3-1 hands (44
+    bodies, 43 hinges): ``g1_fixture_mjcf()``'s bodies unchanged, the
+    fingers of ``_HAND`` (assumed geometry) added inside each wrist-yaw
+    link."""
+    text = g1_fixture_mjcf().replace('model="g1_shaped_fixture"', 'model="g1_dex3_shaped_fixture"')
+    text = text.replace("  </default>\n  <worldbody>", _HAND_CLASS + "  </default>\n  <worldbody>")
+    for side in ("left", "right"):
+        close = text.index(" " * 22 + "</body>", text.index(f'<body name="{side}_wrist_yaw_link"'))
+        fingers = "\n".join(_chain(side, finger, 24, side == "right", _HAND_MIRRORED)
+                            for finger in _HAND)
+        text = text[:close] + fingers + "\n" + text[close:]
+    return text
+
+
+def write_g1_dex3_fixture(directory: str) -> str:
+    """Write the G1 + Dex3-1 MJCF into ``directory`` and return its path."""
+    return _write(os.path.join(directory, "g1_dex3_shaped_fixture.xml"), g1_dex3_fixture_mjcf())
+
+
+class Robot(NamedTuple):
+    write: Callable[[str], str]      # writes the fixture into a directory
+    joint_order: list                # the column order of its motion files
+    clip_suffix: str                 # clip_<seed><clip_suffix>.motion
+
+
+ROBOTS = {
+    "g1": Robot(write_g1_fixture, MOTION_JOINT_ORDER, ""),
+    "g1_dex3": Robot(write_g1_dex3_fixture, G1_DEX3_MOTION_JOINT_ORDER, "_g1_dex3"),
+}
+
+
+def robot(name: str) -> Robot:
+    """The entry of ``ROBOTS`` named ``name``; a ``KeyError`` that lists the
+    known names otherwise."""
+    if name not in ROBOTS:
+        raise KeyError(f"unknown robot {name!r}; the known robots are {sorted(ROBOTS)}")
+    return ROBOTS[name]
+
+
 # a crouched base pose inside every joint range (motion column order)
 _G1_BASE_POSE = {
     "hip_pitch": -0.2, "knee": 0.4, "ankle_pitch": -0.2, "elbow": 0.3,
@@ -241,9 +325,12 @@ def write_motion_csv(path: str, seed: int, num_frames: int = 90, **kw) -> str:
 CLIP_FRAMES = 300
 
 
-def write_inputs(directory: str, clip_seed: int = 0):
-    """The fixture and its synthetic clip in ``directory``: (MJCF path,
-    clip path).  Files already there with the same bytes are left alone."""
-    return (write_g1_fixture(directory),
-            write_motion_csv(os.path.join(directory, f"clip_{clip_seed}.motion"), seed=clip_seed,
-                             num_frames=CLIP_FRAMES))
+def write_inputs(directory: str, clip_seed: int = 0, name: str = "g1"):
+    """The fixture of robot ``name`` and a synthetic clip in its joint
+    order in ``directory``: (MJCF path, clip path).  The G1's are
+    ``g1_shaped_fixture.xml`` and ``clip_<seed>.motion``."""
+    entry = robot(name)
+    clip = os.path.join(directory, f"clip_{clip_seed}{entry.clip_suffix}.motion")
+    return (entry.write(directory),
+            write_motion_csv(clip, seed=clip_seed, num_frames=CLIP_FRAMES,
+                             joint_order=entry.joint_order))

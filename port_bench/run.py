@@ -3,9 +3,10 @@
     python -m port_bench.run --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
 From the root of a checkout, on a machine with the card(s) the cell asks
-for.  Set-up writes the inputs (the G1-shaped fixture, a synthetic clip
-from the seed), builds the program's env and agent on the composed config
-(the control-step kernel is built with nvcc into ``build/add_gym_torch``
+for.  Set-up writes the inputs (the robot the configuration names, by
+default the G1-shaped fixture, and a synthetic clip from the seed),
+builds the program's env and agent on the composed config (the
+control-step kernel is built with nvcc into ``build/add_gym_torch``
 at first use, and kept there), hands it the initial weights drawn from the
 seed and drives it through the iterations the reference follows, the
 first of which warms up every shape the window uses.  The window then
@@ -74,10 +75,10 @@ def set_up(cell: dict, seed: int, device: str, plant=None, build=None):
     """The session after the followed iterations, and what the reference
     follows them by: (session, cfg, followed = dict(recs, prog_params,
     weights))."""
-    from port_bench import check, inputs, session, spec
+    from port_bench import check, session, spec
 
     files = os.path.join(spec.ROOT, "build", "port_bench", "inputs")
-    mjcf, clip = inputs.write_inputs(files, clip_seed=seed)
+    mjcf, clip = spec.write_inputs(cell, files, seed)
     cfg = spec.compose(cell, mjcf, clip, seed)
     sess = session.Session(cfg, seed, device, plant=plant, build=build)
     log(f"built env and agent: {sess.num_envs} envs, {sess.steps} steps an iteration, "

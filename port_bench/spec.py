@@ -4,7 +4,9 @@ A workload names a configuration and a traffic mix; the configuration file
 holds the whole composed config as it is run (``config``), the traffic
 file the dotted keys it sets on it (``set``) and what the correctness
 check follows (``check``), and ``limits/<workload>.json`` the limit of
-each number the check compares.  Adding a cell, a configuration or a
+each number the check compares.  A configuration names its robot under
+``inputs`` (``{"robot": "<name>"}``, one of ``inputs.ROBOTS``; ``g1``
+where the key is absent).  Adding a cell, a configuration or a
 metric adds files and ``BENCHMARK.json`` entries; nothing here changes.
 """
 
@@ -68,13 +70,37 @@ def get_dotted(cfg: dict, key: str):
     return node
 
 
+def robot(cell: dict) -> str:
+    """The name of the robot the cell's configuration runs."""
+    return cell["config"].get("inputs", {}).get("robot", "g1")
+
+
+def _configured(cell: dict) -> dict:
+    cfg = copy.deepcopy(cell["config"]["config"])
+    for key, value in cell["traffic"]["set"].items():
+        set_dotted(cfg, key, value)
+    return cfg
+
+
+def write_inputs(cell: dict, directory: str, seed: int):
+    """The cell's robot and a clip from ``seed`` in the robot's joint order,
+    written into ``directory``: (MJCF path, clip path).  Raises ValueError
+    where the configuration's ``task.motion_joint_order`` is not that order."""
+    from port_bench import inputs
+
+    name = robot(cell)
+    order = list(get_dotted(_configured(cell), "task.motion_joint_order"))
+    if order != inputs.robot(name).joint_order:
+        raise ValueError(f"workload {cell['name']}: task.motion_joint_order is not the joint "
+                         f"order of robot {name!r} (inputs.ROBOTS)")
+    return inputs.write_inputs(directory, clip_seed=seed, name=name)
+
+
 def compose(cell: dict, mjcf: str, clip: str, seed: int) -> dict:
     """The config a run hands to the program and to the reference alike:
     the configuration's, with the traffic's keys set, the input files and
     the seed."""
-    cfg = copy.deepcopy(cell["config"]["config"])
-    for key, value in cell["traffic"]["set"].items():
-        set_dotted(cfg, key, value)
+    cfg = _configured(cell)
     set_dotted(cfg, "robot.asset_path", mjcf)
     set_dotted(cfg, "task.motion_file", clip)
     cfg["seed"] = int(seed)

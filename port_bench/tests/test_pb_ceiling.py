@@ -6,16 +6,11 @@ at: ``add_gym_torch.bench.derived_ceiling`` and
 import pytest
 import torch
 
-from port_bench import ceiling, inputs, spec
-
-
-@pytest.fixture(scope="module")
-def files(tmp_path_factory):
-    return inputs.write_inputs(str(tmp_path_factory.mktemp("inputs")))
+from port_bench import ceiling, spec
 
 
 @pytest.mark.parametrize("workload", ["g1_add.cloud", "g1_dr.pod_one_card"])
-def test_ceiling_and_bound_equal_the_programs(files, workload):
+def test_ceiling_and_bound_equal_the_programs(tmp_path, workload):
     from add_gym_torch import bench
     from add_gym_torch.builder import build_agent, build_env
     from add_gym_torch.physics import cuda_step as cs
@@ -24,7 +19,7 @@ def test_ceiling_and_bound_equal_the_programs(files, workload):
     from port_bench.reference.builder import build_env as ref_build_env
 
     cell = spec.workload(workload)
-    cfg = spec.compose(cell, *files, seed=1)
+    cfg = spec.compose(cell, *spec.write_inputs(cell, str(tmp_path), 0), seed=1)
     n = int(cfg["engine"]["num_envs"])
     small = dict(cfg, device="cpu")
     small["engine"] = dict(cfg["engine"], num_envs=8, kernel="off")

@@ -6,9 +6,10 @@ import json
 import os
 import re
 
+import numpy as np
 import pytest
 
-from port_bench import check, run, spec
+from port_bench import check, inputs, run, spec
 
 BENCH = spec.benchmark()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
@@ -52,15 +53,23 @@ def test_benchmark_json_keeps_the_contract_shape():
         assert w["chips"] in (1, 4) and len(w["why"]) <= 200
 
 
-def test_scratch_cell_from_new_files_only(tmp_path, monkeypatch):
+@pytest.mark.parametrize("robot", [None, "g1_dex3"])
+def test_scratch_cell_from_new_files_only(tmp_path, monkeypatch, robot):
     """A new configuration, traffic mix, limits file and metric reader,
     and their BENCHMARK.json entries, are all a new cell needs: it
     resolves, and a run of it at a tiny size on the CPU reports its
-    metrics and its checks."""
+    metrics and its checks, and comes out correct.  A configuration that
+    names another robot (``"inputs": {"robot": ...}``, its joint order as
+    ``task.motion_joint_order``) runs on that robot's fixture and a clip
+    in that order."""
     for sub in ("configs", "traffic", "limits", "metrics"):
         (tmp_path / sub).mkdir()
     base = spec.workload("g1_add.cloud", BENCH)
-    (tmp_path / "configs" / "scratch_cfg.json").write_text(json.dumps(base["config"]))
+    config = json.loads(json.dumps(base["config"]))
+    if robot is not None:
+        config["inputs"] = {"robot": robot}
+        config["config"]["task"]["motion_joint_order"] = inputs.ROBOTS[robot].joint_order
+    (tmp_path / "configs" / "scratch_cfg.json").write_text(json.dumps(config))
     (tmp_path / "traffic" / "scratch_mix.json").write_text(json.dumps(
         {"set": {"engine.num_envs": 8, "agent.steps_per_iter": 4, "agent.batch_size": 2},
          "check": {"iterations": 1, "control_steps": 1}}))
@@ -80,7 +89,15 @@ def test_scratch_cell_from_new_files_only(tmp_path, monkeypatch):
     import port_bench.metrics as metrics_pkg
     monkeypatch.setattr(metrics_pkg, "__path__", list(metrics_pkg.__path__) + [str(tmp_path / "metrics")])
     assert run.read_metric("scratch_metric", dict(iterations=3)) == dict(value=3.0, unit="1")
+    assert spec.robot(cell) == (robot or "g1")
     ctx = run.measure(cell, 2**31 + 5, 0.0, False, "cpu")
     out = run.result(ctx, ["env_steps_per_s", "setup_s", "scratch_metric"])
     assert set(out["metrics"]) == {"env_steps_per_s", "setup_s", "scratch_metric"}
     assert set(out["checks"]) == set(base["limits"]) and out["attempted"] >= 1
+    assert out["correct"], out["checks"]
+    fixture = inputs.ROBOTS[robot or "g1"].write
+    mjcf, clip = ctx["cfg"]["robot"]["asset_path"], ctx["cfg"]["task"]["motion_file"]
+    assert os.path.basename(mjcf) == os.path.basename(fixture(str(tmp_path)))
+    frames = np.loadtxt(clip, delimiter=",")
+    assert frames.shape[1] == 7 + len(config["config"]["task"]["motion_joint_order"])
+    assert ctx["model_counts"]["num_dofs"] == frames.shape[1] - 7
