@@ -2,14 +2,23 @@
 //
 // Replaces add_gym_tpu/physics/pallas_step.py::_control_step_kernel; the
 // math, the buffer layout and the team design are described in
-// control_step.cuh.  A warp steps one env (lane i owns body i), AGT_WARPS
-// envs a block, each warp with its AgtEnvScratch in dynamic shared memory;
-// grid ceil(N / AGT_WARPS).  The kernel has no __syncthreads, so a warp
-// past N returns at once.  Two entry points, one per variant of the
-// per-env function: agt_control_step (shared gains) and
+// control_step.cuh.  A warp steps one env (lane i owns body i, and body
+// i + 32 past 32 bodies), AgtShape<kCap>::kWarps envs a block, each warp
+// with its AgtEnvScratch<kCap> in dynamic shared memory; grid
+// ceil(N / kWarps).  The kernel has no __syncthreads, so a warp past N
+// returns at once.  One instance per body capacity kCap, each in both
+// variants (agt_control_step_kernel<kPerEnv, kCap>):
+//   * 32: 4 envs a block, 43,264 B of shared memory (the G1's 30 bodies);
+//   * 48: 2 envs a block, 32,384 B (up to 48 bodies: the G1 with Dex3-1
+//     hands has 44).  48 slots rather than 64 because shared memory sets
+//     how many envs an SM holds: 12 at 16,192 B an env against 10 at 64
+//     slots' 21,568 B (228 KB an SM, 1 KB more a block); two envs a block
+//     stay under the 48 KB a launch takes without opting in, and hold as
+//     many envs an SM as four would with it.
+// Two entry points, one per variant: agt_control_step (shared gains) and
 // agt_control_step_dr (per-env gains, friction and mass scale in the input
-// block).  Both take n_np, the count of bodies with held narrowphase rows
-// at the end of the input block (0: none).
+// block).  Both take the instance's capacity and n_np, the count of bodies
+// with held narrowphase rows at the end of the input block (0: none).
 //
 // Built by hand with nvcc into a shared library with a plain C interface
 // and loaded with ctypes (add_gym_torch/physics/cuda_step.py):
@@ -21,11 +30,23 @@
 
 #include "control_step.cuh"
 
-#define AGT_WARPS 4
+// The launch shape of each instance: envs (warps) a block.
+template <int kCap>
+struct AgtShape;
+template <>
+struct AgtShape<32> {
+  static constexpr int kWarps = 4;
+};
+template <>
+struct AgtShape<48> {
+  static constexpr int kWarps = 2;
+};
 
-// 4 envs of ~10.6 KB stay under the 48 KB a block may take without
+// each instance's block stays under the 48 KB a launch may take without
 // cudaFuncSetAttribute(..., cudaFuncAttributeMaxDynamicSharedMemorySize, ...)
-static_assert(AGT_WARPS * sizeof(AgtEnvScratch) <= 48 * 1024,
+static_assert(AgtShape<32>::kWarps * sizeof(AgtEnvScratch<32>) <= 48 * 1024,
+              "more shared memory a block than a launch takes without opting in");
+static_assert(AgtShape<48>::kWarps * sizeof(AgtEnvScratch<48>) <= 48 * 1024,
               "more shared memory a block than a launch takes without opting in");
 
 // The card's team: one warp.  (Host-callable in name only, so that the
@@ -51,43 +72,62 @@ struct AgtWarp {
   }
 };
 
-template <bool kPerEnv>
-__global__ void __launch_bounds__(AGT_WARPS * 32)
+template <bool kPerEnv, int kCap>
+__global__ void __launch_bounds__(AgtShape<kCap>::kWarps * 32)
 agt_control_step_kernel(AgtModel m, const float* __restrict__ in, float* __restrict__ out, int n) {
+  constexpr int kWarps = AgtShape<kCap>::kWarps;
   extern __shared__ float4 agt_smem[];
   const int w = threadIdx.x >> 5;
-  const int e = blockIdx.x * AGT_WARPS + w;
+  const int e = blockIdx.x * kWarps + w;
   if (e >= n) return;
-  AgtEnvScratch& s = reinterpret_cast<AgtEnvScratch*>(agt_smem)[w];
+  AgtEnvScratch<kCap>& s = reinterpret_cast<AgtEnvScratch<kCap>*>(agt_smem)[w];
   agt_control_step_env<kPerEnv>(AgtWarp(), m, s, in, out, n, e);
 }
 
-extern "C" int agt_max_bodies() { return AGT_MAX_BODIES; }
-
-// The launch shape of a variant on the current device: info = {envs a
-// block, dynamic shared bytes a block, blocks resident per SM, registers a
-// thread}.  Returns a CUDA error code (0 = ok).
-extern "C" int agt_kernel_info(int per_env, int* info) {
-  const void* fn = per_env ? (const void*)agt_control_step_kernel<true>
-                           : (const void*)agt_control_step_kernel<false>;
-  const int smem = AGT_WARPS * sizeof(AgtEnvScratch);
+template <int kCap>
+static int agt_info(int per_env, int* info) {
+  constexpr int kWarps = AgtShape<kCap>::kWarps;
+  const void* fn = per_env ? (const void*)agt_control_step_kernel<true, kCap>
+                           : (const void*)agt_control_step_kernel<false, kCap>;
+  const int smem = kWarps * sizeof(AgtEnvScratch<kCap>);
   cudaFuncAttributes attr;
   cudaError_t rc = cudaFuncGetAttributes(&attr, fn);
   if (rc != cudaSuccess) return (int)rc;
   int blocks = 0;
-  rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, AGT_WARPS * 32, smem);
+  rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kWarps * 32, smem);
   if (rc != cudaSuccess) return (int)rc;
-  info[0] = AGT_WARPS;
+  info[0] = kWarps;
   info[1] = smem;
   info[2] = blocks;
   info[3] = attr.numRegs;
   return 0;
 }
 
+// The launch shape of a variant of the instance of capacity `cap` on the
+// current device: info = {envs a block, dynamic shared bytes a block,
+// blocks resident per SM, registers a thread}.  Returns a CUDA error code
+// (0 = ok; cudaErrorInvalidValue for a capacity with no instance).
+extern "C" int agt_kernel_info(int cap, int per_env, int* info) {
+  if (cap == 32) return agt_info<32>(per_env, info);
+  if (cap == 48) return agt_info<48>(per_env, info);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool kPerEnv, int kCap>
+static int agt_launch_instance(const AgtModel& m, const float* in, float* out, int n,
+                               void* stream) {
+  constexpr int kWarps = AgtShape<kCap>::kWarps;
+  dim3 grid((n + kWarps - 1) / kWarps);
+  agt_control_step_kernel<kPerEnv, kCap><<<grid, kWarps * 32, kWarps * sizeof(AgtEnvScratch<kCap>),
+                                           (cudaStream_t)stream>>>(m, in, out, n);
+  return (int)cudaGetLastError();
+}
+
 template <bool kPerEnv>
-static int agt_launch(const float* fbuf, const int* ibuf, int nb, int nd, int ncp, int nsph,
-                      int npair, int substeps, int n_np, const float* in, float* out, int n,
-                      void* stream) {
+static int agt_launch(int cap, const float* fbuf, const int* ibuf, int nb, int nd, int ncp,
+                      int nsph, int npair, int substeps, int n_np, const float* in, float* out,
+                      int n, void* stream) {
+  if (nb > cap) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   AgtModel m;
   m.f = fbuf;
@@ -99,26 +139,27 @@ static int agt_launch(const float* fbuf, const int* ibuf, int nb, int nd, int nc
   m.npair = npair;
   m.substeps = substeps;
   m.n_np = n_np;
-  dim3 grid((n + AGT_WARPS - 1) / AGT_WARPS);
-  agt_control_step_kernel<kPerEnv><<<grid, AGT_WARPS * 32, AGT_WARPS * sizeof(AgtEnvScratch),
-                                     (cudaStream_t)stream>>>(m, in, out, n);
-  return (int)cudaGetLastError();
+  if (cap == 32) return agt_launch_instance<kPerEnv, 32>(m, in, out, n, stream);
+  if (cap == 48) return agt_launch_instance<kPerEnv, 48>(m, in, out, n, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
-// Launch on `stream` (a cudaStream_t), allocate nothing, do not
-// synchronise.  Return cudaGetLastError() after the launch (0 = ok).
-// `in` has 13 + 4*nd rows (main) or 15 + 6*nd rows (per-env variant), plus
-// 6*n_np narrowphase rows.
-extern "C" int agt_control_step(const float* fbuf, const int* ibuf, int nb, int nd, int ncp,
-                                int nsph, int npair, int substeps, int n_np, const float* in,
-                                float* out, int n, void* stream) {
-  return agt_launch<false>(fbuf, ibuf, nb, nd, ncp, nsph, npair, substeps, n_np, in, out, n,
-                           stream);
+// Launch the instance of capacity `cap` (32 or 48, at least nb) on
+// `stream` (a cudaStream_t), allocate nothing, do not synchronise.  Return
+// cudaGetLastError() after the launch (0 = ok), or cudaErrorInvalidValue
+// without launching for a capacity with no instance or under nb.  `in` has
+// 13 + 4*nd rows (main) or 15 + 6*nd rows (per-env variant), plus 6*n_np
+// narrowphase rows.
+extern "C" int agt_control_step(int cap, const float* fbuf, const int* ibuf, int nb, int nd,
+                                int ncp, int nsph, int npair, int substeps, int n_np,
+                                const float* in, float* out, int n, void* stream) {
+  return agt_launch<false>(cap, fbuf, ibuf, nb, nd, ncp, nsph, npair, substeps, n_np, in, out,
+                           n, stream);
 }
 
-extern "C" int agt_control_step_dr(const float* fbuf, const int* ibuf, int nb, int nd, int ncp,
-                                   int nsph, int npair, int substeps, int n_np, const float* in,
-                                   float* out, int n, void* stream) {
-  return agt_launch<true>(fbuf, ibuf, nb, nd, ncp, nsph, npair, substeps, n_np, in, out, n,
-                          stream);
+extern "C" int agt_control_step_dr(int cap, const float* fbuf, const int* ibuf, int nb, int nd,
+                                   int ncp, int nsph, int npair, int substeps, int n_np,
+                                   const float* in, float* out, int n, void* stream) {
+  return agt_launch<true>(cap, fbuf, ibuf, nb, nd, ncp, nsph, npair, substeps, n_np, in, out,
+                          n, stream);
 }

@@ -37,10 +37,16 @@
 //
 // Design.  A team of threads steps one env together: on the card the team
 // is one warp, lane i owning body i and dof i - 1 (the joint of body i),
-// so a model of up to AGT_MAX_BODIES = 32 bodies fits.  The per-env working
-// set (AgtEnvScratch: FK frames, articulated-inertia blocks, bias forces and
-// the state, ~10.6 KB) lives in shared memory, body-minor: element k of
-// body i's field at field[k][i], so 32 lanes on one field touch 32 banks.
+// and bodies i + 32, ... too where a model has more than 32.  The per-env
+// working set (AgtEnvScratch<kCap>: FK frames, articulated-inertia blocks,
+// bias forces and the state, 84 rows of kCap body slots) lives in shared
+// memory, body-minor: element k of body i's field at field[k][i], so 32
+// lanes on one field touch 32 banks.  The body capacity kCap is a template
+// parameter: the kernel has one instance per capacity (control_step.cu:
+// 32 slots, 10,816 B an env, for the G1's 30 bodies; 48 slots, 16,192 B,
+// for up to 48, such as the G1 with Dex3-1 hands' 44), and a model takes
+// the narrowest that holds its bodies.  Past 32 bodies lanes 0..nb-33
+// carry two bodies in each phase, one after the other.
 // The step is a sequence of phases.  In each, the team spreads independent
 // items over its lanes (team.each, below: bodies, dofs, sphere pairs,
 // narrowphase rows) and syncs after it; an item writes only its own slots
@@ -56,7 +62,8 @@
 // not depend on the team's size or on which lane ran which item: the host
 // build at team size 1 and 32 agree bit for bit (the CPU tests check it),
 // and two launches on one input give the same bits.  What is left serial
-// is the tree's depth (10 levels for the G1: waist 3 + arm 7) times a
+// is the tree's depth (10 levels for the G1: waist 3 + arm 7; 13 with
+// the Dex3-1 hands' thumb 3) times a
 // body's ABA work, the root's 6x6 solve and integration on lane 0, and
 // each body's contact points.  The model constants live in one packed f32
 // buffer and one i32 buffer (layout below, written by
@@ -74,6 +81,8 @@
 
 #include <math.h>
 
+#include <type_traits>
+
 #if defined(__CUDACC__)
 #define AGT_HD __host__ __device__ __forceinline__
 #else
@@ -86,7 +95,6 @@
 #define AGT_LDG(p) (*(p))
 #endif
 
-#define AGT_MAX_BODIES 32
 #define AGT_PAIR_CHUNK 32  // sphere pairs per round of the held self-collision
 
 // f32 buffer layout (offsets in floats; each section field-major: element k
@@ -100,10 +108,15 @@
 //   spheres  [AGT_SPH][nsph]:   pos[3] radius
 //   pairs    [AGT_PAIR][npair]: radius_sum k_sc b_sc
 // i32 buffer: parent[nb] (parent[i] < i), depth[nb + 1] (each body's depth
-//             in the tree, then the tree's depth), children[nb] (bit c of
-//             body i's mask set when parent[c] = i), cp_start[nb + 1],
-//             sph_body[nsph], pair[npair][2], np_body[n_np] (sorted, distinct
-//             bodies of the narrowphase rows)
+//             in the tree, then the tree's depth), children[nb] (bits 0-31
+//             of body i's 64-bit child mask, bit c set when parent[c] = i),
+//             cp_start[nb + 1], sph_body[nsph], pair[npair][2],
+//             children_hi[nb] (bits 32-63 of the masks), np_body[n_np]
+//             (sorted, distinct bodies of the narrowphase rows).  The high
+//             words come after the sections a step reads at every substep,
+//             so that those keep the offsets they had before models of
+//             more than 32 bodies: moving cp_start and the sphere tables
+//             by nb slowed the G1's step by ~1% on the H100.
 #define AGT_HDR 8
 #define AGT_BODY 52
 #define AGT_DOF 7
@@ -130,13 +143,20 @@ struct AgtModel {
   AGT_HD int parent(int i) const { return AGT_LDG(ib + i); }
   AGT_HD int depth(int i) const { return AGT_LDG(ib + nb + i); }
   AGT_HD int levels() const { return depth(nb); }
-  AGT_HD unsigned children(int i) const { return (unsigned)AGT_LDG(ib + 2 * nb + 1 + i); }
+  // body i's child mask as a Mask (unsigned: bits 0-31; unsigned long long: 0-63)
+  template <class Mask>
+  AGT_HD Mask children(int i) const {
+    Mask mask = (unsigned)AGT_LDG(ib + 2 * nb + 1 + i);
+    if constexpr (sizeof(Mask) > 4)
+      mask |= (Mask)(unsigned)AGT_LDG(ib + 4 * nb + 2 + nsph + 2 * npair + i) << 32;
+    return mask;
+  }
   AGT_HD int cp_start(int i) const { return AGT_LDG(ib + 3 * nb + 1 + i); }
   AGT_HD int sph_body(int s) const { return AGT_LDG(ib + 4 * nb + 2 + s); }
   AGT_HD int pair_sphere(int q, int side) const {
     return AGT_LDG(ib + 4 * nb + 2 + nsph + 2 * q + side);
   }
-  AGT_HD int np_body(int j) const { return AGT_LDG(ib + 4 * nb + 2 + nsph + 2 * npair + j); }
+  AGT_HD int np_body(int j) const { return AGT_LDG(ib + 5 * nb + 2 + nsph + 2 * npair + j); }
 };
 
 // ------------------------------------------------------------------ team
@@ -167,6 +187,14 @@ AGT_HD int agt_msb(unsigned x) {
   return 31 - __clz(x);
 #else
   return 31 - __builtin_clz(x);
+#endif
+}
+
+AGT_HD int agt_msb(unsigned long long x) {
+#if defined(__CUDA_ARCH__)
+  return 63 - __clzll(x);
+#else
+  return 63 - __builtin_clzll(x);
 #endif
 }
 
@@ -222,10 +250,14 @@ struct AgtEnvParams {
   AGT_HD float scale(float x) const { return kPerEnv ? x * ms : x; }
 };
 
-typedef float AgtRow[AGT_MAX_BODIES];
-
-// One env's working set, body-minor (element k of body i at field[k][i]).
+// One env's working set, body-minor (element k of body i at field[k][i]),
+// for models of up to kCap bodies; Mask holds a body's child mask.
+template <int kCap>
 struct AgtEnvScratch {
+  static_assert(kCap >= AGT_PAIR_CHUNK && kCap <= 64,
+                "a pair chunk fills one row; child masks hold 64 bodies");
+  typedef float AgtRow[kCap];
+  typedef typename std::conditional<(kCap <= 32), unsigned, unsigned long long>::type Mask;
   AgtRow W[9];    // body -> world rotation
   AgtRow M[9];    // parent -> body joint rotation
   AgtRow o[3];    // world origin
@@ -248,21 +280,21 @@ struct AgtEnvScratch {
   float root[16];          // root pos 0-2, quat 3-6 (w x y z), vel 7-9, ang vel 10-12
 };
 
-template <int K>
-AGT_HD void agt_ld(const AgtRow* rows, int i, float* v) {
+template <int K, class Row>
+AGT_HD void agt_ld(const Row* rows, int i, float* v) {
   for (int k = 0; k < K; ++k) v[k] = rows[k][i];
 }
 
-template <int K>
-AGT_HD void agt_st(AgtRow* rows, int i, const float* v) {
+template <int K, class Row>
+AGT_HD void agt_st(Row* rows, int i, const float* v) {
   for (int k = 0; k < K; ++k) rows[k][i] = v[k];
 }
 
 // FK and body velocities of the state in s (root, q, qd) into W, M, o, om,
 // vel: the joint rotations and the root frame in one phase, then one phase
 // per level of the tree.
-template <class Team>
-AGT_HD void agt_fk(const Team& team, const AgtModel& m, AgtEnvScratch& s) {
+template <class Team, class Scratch>
+AGT_HD void agt_fk(const Team& team, const AgtModel& m, Scratch& s) {
   team.each(m.nb, [&](int i) {
     if (i == 0) {
       const float* r = s.root;
@@ -314,13 +346,14 @@ AGT_HD void agt_fk(const Team& team, const AgtModel& m, AgtEnvScratch& s) {
 // AGT_PAIR_CHUNK at a time: a lane per pair writes its force and the two
 // torques to the pair buffer, then each body's lane adds the pairs that
 // touch it in pair order.
-template <class Team>
-AGT_HD void agt_held_wrenches(const Team& team, const AgtModel& m, AgtEnvScratch& s,
+template <class Team, class Scratch>
+AGT_HD void agt_held_wrenches(const Team& team, const AgtModel& m, Scratch& s,
                               const float* rows, int n) {
   team.each(m.nb, [&](int i) {
     for (int k = 0; k < 3; ++k) s.scn[k][i] = s.scf[k][i] = 0.0f;
   });
-  AgtRow* buf = s.ABD;  // pair c0 + t: f 0-2, torque on a 3-5, on b 6-8, bodies 9-10
+  // pair c0 + t: f 0-2, torque on a 3-5, on b 6-8, bodies 9-10
+  typename Scratch::AgtRow* buf = s.ABD;
   for (int c0 = 0; c0 < m.npair; c0 += AGT_PAIR_CHUNK) {
     const int cnt = m.npair - c0 < AGT_PAIR_CHUNK ? m.npair - c0 : AGT_PAIR_CHUNK;
     team.each(cnt, [&](int t) {
@@ -419,14 +452,16 @@ AGT_HD void agt_solve6(const float* A, const float* B, const float* D, const flo
 // Body p's articulated inertia abd[27] (A, B, D) and bias force pn, pf
 // with its children's contributions of ABA pass 2 (left in their ABD, pn
 // and pf slots) added in decreasing child index.
-AGT_HD void agt_articulated(const AgtModel& m, const AgtEnvScratch& s, int p, float* abd,
+template <class Scratch>
+AGT_HD void agt_articulated(const AgtModel& m, const Scratch& s, int p, float* abd,
                             float* pn, float* pf) {
+  typedef typename Scratch::Mask Mask;
   agt_ld<27>(s.ABD, p, abd);
   agt_ld<3>(s.pn, p, pn);
   agt_ld<3>(s.pf, p, pf);
-  for (unsigned kids = m.children(p); kids; ) {
+  for (Mask kids = m.children<Mask>(p); kids; ) {
     const int c = agt_msb(kids);
-    kids &= ~(1u << c);
+    kids &= ~((Mask)1 << c);
     for (int k = 0; k < 27; ++k) abd[k] += s.ABD[k][c];
     for (int k = 0; k < 3; ++k) {
       pn[k] += s.pn[k][c];
@@ -436,9 +471,9 @@ AGT_HD void agt_articulated(const AgtModel& m, const AgtEnvScratch& s, int p, fl
 }
 
 // One substep; writes the per-body contact force to `contact` when non-null.
-template <bool kPerEnv, class Team>
+template <bool kPerEnv, class Team, class Scratch>
 AGT_HD void agt_substep(const Team& team, const AgtModel& m, const AgtEnvParams<kPerEnv>& P,
-                        AgtEnvScratch& s, float* contact, int n) {
+                        Scratch& s, float* contact, int n) {
   const float dt = m.hdr(0), max_torque = m.hdr(1), mu = P.mu, gravity = m.hdr(5);
 
   agt_fk(team, m, s);
@@ -686,8 +721,8 @@ AGT_HD void agt_substep(const Team& team, const AgtModel& m, const AgtEnvParams<
 //   mu 1, ms 1; then 6 narrowphase rows for each of the n_np bodies
 // `out` rows: root_pos 3, root_quat 4, root_vel 3, root_ang_vel 3, q nd,
 //   qd nd, applied target nd, contact nb
-template <bool kPerEnv, class Team>
-AGT_HD void agt_control_step_env(const Team& team, const AgtModel& m, AgtEnvScratch& s,
+template <bool kPerEnv, class Team, class Scratch>
+AGT_HD void agt_control_step_env(const Team& team, const AgtModel& m, Scratch& s,
                                  const float* in, float* out, int n, int e) {
   const int nd = m.nd;
   const float margin = m.hdr(2), max_delta = m.hdr(3);

@@ -732,12 +732,12 @@ _step_counts.eager = 0
 
 def _launch_counts() -> tuple:
     return (cs.cuda_step.launches, cs.cuda_step.dr_launches, cs.cuda_step.np_launches,
-            cs.sharded_cuda_step.launches)
+            cs.cuda_step.wide_launches, cs.sharded_cuda_step.launches)
 
 
 def _set_launch_counts(c) -> None:
     (cs.cuda_step.launches, cs.cuda_step.dr_launches, cs.cuda_step.np_launches,
-     cs.sharded_cuda_step.launches) = c
+     cs.cuda_step.wide_launches, cs.sharded_cuda_step.launches) = c
 
 
 def _leaves(x, like=None) -> list:

@@ -7,6 +7,9 @@ device it launches ``agt_control_step_kernel`` (``csrc/control_step.cu``,
 one warp per env; the per-env step in ``csrc/control_step.cuh``) and
 raises if the launch fails;
 for CPU tensors it runs the plain version, ``fused_step.fused_step``.
+The kernel has one instance per body capacity (:data:`INSTANCES`); a
+model goes to the narrowest that holds its bodies (:func:`instance`), and
+one past the widest is refused.
 Parameters with per-env leaves (domain randomization: ``kp``/``kv``
 ``[N, nd]``, ``friction_mu`` ``[N]``, a mass scale) go to the kernel's
 per-env variant, the rest to its main variant; each counts its launches.
@@ -55,6 +58,9 @@ NVCC_FLAGS = (
 
 # buffer layout: keep in step with the AGT_* constants in control_step.cuh
 HDR, BODY, DOF, PT, SPH, PAIR = 8, 52, 7, 7, 4, 3
+# the body capacities of the kernel's instances, narrowest first: keep in
+# step with AgtShape in control_step.cu
+INSTANCES = (32, 48)
 
 _lib = None
 
@@ -106,47 +112,56 @@ def _library():
         for fn in (lib.agt_control_step, lib.agt_control_step_dr):
             fn.restype = ctypes.c_int
             fn.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
             ]
-        lib.agt_max_bodies.restype = ctypes.c_int
-        lib.agt_max_bodies.argtypes = []
         lib.agt_kernel_info.restype = ctypes.c_int
-        lib.agt_kernel_info.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.agt_kernel_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         _lib = lib
     return _lib
 
 
-def kernel_info(per_env: bool = False) -> dict:
-    """The launch shape of the kernel's main or per-env variant on the
-    current CUDA device: envs (warps) a block, dynamic shared memory bytes
-    a block, blocks resident per SM, registers a thread."""
+def instance(nb: int) -> int:
+    """The body capacity of the kernel instance that steps a model of
+    ``nb`` bodies: the narrowest of :data:`INSTANCES` that holds them.
+    Raises ValueError past the widest."""
+    for cap in INSTANCES:
+        if nb <= cap:
+            return cap
+    raise ValueError(f"model has {nb} bodies; the kernel takes at most {INSTANCES[-1]}")
+
+
+def kernel_info(per_env: bool = False, capacity: int = INSTANCES[0]) -> dict:
+    """The launch shape of the main or per-env variant of the instance of
+    body capacity ``capacity`` on the current CUDA device: envs (warps) a
+    block, dynamic shared memory bytes a block, blocks resident per SM,
+    registers a thread, and envs resident per SM."""
     info = (ctypes.c_int * 4)()
-    rc = _library().agt_kernel_info(int(per_env), info)
+    rc = _library().agt_kernel_info(int(capacity), int(per_env), info)
     if rc != 0:
-        raise RuntimeError(f"control step kernel attributes: CUDA error {rc}")
-    return dict(envs_per_block=info[0], shared_bytes=info[1], blocks_per_sm=info[2],
-                registers=info[3])
+        raise RuntimeError(f"control step kernel attributes ({capacity} bodies): CUDA error {rc}")
+    return dict(capacity=capacity, envs_per_block=info[0], shared_bytes=info[1],
+                blocks_per_sm=info[2], registers=info[3], envs_per_sm=info[0] * info[2])
 
 
 def tree_tables(parent):
     """(depth [nb], children [nb]) of a tree given by ``parent`` (parent[i] <
-    i, parent[0] = -1): each body's depth, and a bit mask of its children
-    (bit c set when parent[c] = i, as i32; at most 32 bodies)."""
+    i, parent[0] = -1): each body's depth, and a 64-bit mask of its
+    children (bit c set when parent[c] = i, as u64; at most 64 bodies)."""
     parent = np.asarray(parent)
     nb = len(parent)
-    if nb > 32:
-        raise ValueError(f"model has {nb} bodies; the child masks take at most 32")
+    if nb > 64:
+        raise ValueError(f"model has {nb} bodies; the child masks take at most 64")
     depth = np.zeros(nb, np.int64)
-    children = np.zeros(nb, np.uint32)
+    children = np.zeros(nb, np.uint64)
     for i in range(1, nb):
         p = int(parent[i])
         if not 0 <= p < i:
             raise ValueError(f"body {i} has parent {p}: parents must come first")
         depth[i] = depth[p] + 1
-        children[p] |= np.uint32(1 << i)
-    return depth, children.view(np.int32)
+        children[p] |= np.uint64(1) << np.uint64(i)
+    return depth, children
 
 
 def pack_model(fc: FusedModelConstants, params: EngineParams, per_env: bool | None = None):
@@ -154,8 +169,9 @@ def pack_model(fc: FusedModelConstants, params: EngineParams, per_env: bool | No
 
     Returns (fbuf f32, ibuf i32, counts) with counts = (nb, nd, ncp, nsph,
     npair, substeps, n_np); the layout is documented in control_step.cuh
-    (f32 sections field-major; i32 parent, depth + the tree's depth, child
-    masks, contact-point CSR, spheres, pairs, narrowphase bodies).  For
+    (f32 sections field-major; i32 parent, depth + the tree's depth, bits
+    0-31 of the child masks, contact-point CSR, spheres, pairs, bits 32-63
+    of the child masks, narrowphase bodies).  For
     the per-env variant (``per_env``, by default ``is_per_env(params)``)
     the shared kp/kv/mu slots hold 0: it reads them from its input block.
     """
@@ -191,9 +207,11 @@ def pack_model(fc: FusedModelConstants, params: EngineParams, per_env: bool | No
         [hdr, body.T.ravel(), dof.T.ravel(), pt.T.ravel(), sph.T.ravel(), pair.T.ravel()]
     ).astype(np.float32)
     depth, children = tree_tables(fc.parent)
+    lo, hi = ((w.astype(np.uint32).view(np.int32))
+              for w in (children & np.uint64(0xFFFFFFFF), children >> np.uint64(32)))
     cp_start = np.searchsorted(fc.cp_body, np.arange(nb + 1))
     ibuf = np.concatenate(
-        [fc.parent, depth, [depth.max()], children, cp_start, fc.sc_body, pairs.ravel(),
+        [fc.parent, depth, [depth.max()], lo, cp_start, fc.sc_body, pairs.ravel(), hi,
          fc.np_bodies]
     ).astype(np.int32)
     counts = (nb, nd, len(fc.cp_body), len(fc.sc_body), len(pairs), int(params.substeps),
@@ -287,7 +305,8 @@ def launch_control_step(fc: FusedModelConstants, params: EngineParams, inp,
     ``inp`` is a contiguous f32 CUDA tensor (see :func:`pack_state`) of
     [13 + 4 nd, N] rows for the main variant, [15 + 6 nd, N] for the
     per-env one, each plus 6 narrowphase rows per body of ``fc.np_bodies``.
-    Launches on the current stream; raises if the launch fails.  Does not
+    Launches the instance :func:`instance` picks on the current stream;
+    raises past the widest instance, or if the launch fails.  Does not
     count launches (see :func:`cuda_step`).
     """
     if not inp.is_cuda or inp.dtype != torch.float32 or not inp.is_contiguous():
@@ -298,17 +317,17 @@ def launch_control_step(fc: FusedModelConstants, params: EngineParams, inp,
     want = (15 + 6 * nd if per_env else 13 + 4 * nd) + 6 * len(fc.np_bodies)
     if inp.shape[0] != want:
         raise ValueError(f"input block has {inp.shape[0]} rows, expected {want}")
+    cap = instance(nb)
     lib = _library()
     launch = lib.agt_control_step_dr if per_env else lib.agt_control_step
-    if nb > lib.agt_max_bodies():
-        raise ValueError(f"model has {nb} bodies; the kernel takes at most {lib.agt_max_bodies()}")
     n = inp.shape[1]
     fbuf, ibuf, counts = _device_model(fc, params, inp.device, per_env)
     out = torch.empty((13 + 3 * nd + nb, n), dtype=torch.float32, device=inp.device)
     with torch.cuda.device(inp.device):
         stream = torch.cuda.current_stream(inp.device).cuda_stream
         rc = launch(
-            fbuf.data_ptr(), ibuf.data_ptr(), *counts, inp.data_ptr(), out.data_ptr(), n, stream,
+            cap, fbuf.data_ptr(), ibuf.data_ptr(), *counts, inp.data_ptr(), out.data_ptr(), n,
+            stream,
         )
     if rc != 0:
         raise RuntimeError(f"control step kernel launch failed: CUDA error {rc}")
@@ -321,8 +340,9 @@ def cuda_step(fc: FusedModelConstants, params: EngineParams, state: SimState, pd
     CUDA tensors go through the kernel: shared parameters through the main
     variant (``cuda_step.launches`` counts its launches), per-env ones
     through the per-env variant (``cuda_step.dr_launches``); a launch with
-    narrowphase rows counts in ``cuda_step.np_launches`` too.  CPU tensors
-    go through the plain version.
+    narrowphase rows counts in ``cuda_step.np_launches`` too, and one of an
+    instance wider than the narrowest (a model of more than 32 bodies) in
+    ``cuda_step.wide_launches``.  CPU tensors go through the plain version.
     """
     if not state.root_pos.is_cuda:
         return fused_step(fc, params, state, pd_target)
@@ -336,12 +356,15 @@ def cuda_step(fc: FusedModelConstants, params: EngineParams, state: SimState, pd
         cuda_step.launches += 1
     if np_ext is not None:
         cuda_step.np_launches += 1
+    if fc.nb > INSTANCES[0]:
+        cuda_step.wide_launches += 1
     return unpack_state(out, fc.nd)
 
 
 cuda_step.launches = 0
 cuda_step.dr_launches = 0
 cuda_step.np_launches = 0
+cuda_step.wide_launches = 0
 
 
 def sharded_cuda_step(fc: FusedModelConstants, params: EngineParams, state: SimState,

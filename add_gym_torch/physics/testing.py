@@ -12,7 +12,8 @@
   does not ship; both packages load it by absolute path, so one file
   drives the JAX reference and the port at the G1's widths.
 * :func:`write_wide_fixture`: the G1-shaped robot with extra hinged
-  links at the wrists (32 bodies at 2 extra: the kernel's most).
+  links at the wrists (32 bodies at 2 extra: the kernel's narrow
+  instance's most; 49 at 19, past its wide instance's 48).
 * :func:`write_mesh_fixture`: the G1-shaped robot with one binary-STL box
   per body as a visual mesh geom (``group="1"``, not collidable), for the
   renderer: the physics model built from it is the plain fixture's.
@@ -252,7 +253,8 @@ def write_g1_fixture(directory: str) -> str:
 def write_wide_fixture(directory: str, extra: int) -> str:
     """Write the G1-shaped MJCF with ``extra`` more hinged links, hung off
     the wrists in turn (left, right, left, ...), and return its path: 32
-    bodies, the control-step kernel's most, at ``extra = 2``."""
+    bodies, the most of the control-step kernel's narrow instance, at
+    ``extra = 2``."""
     text = g1_fixture_mjcf()
     for k in range(extra):
         side = ("left", "right")[k % 2]

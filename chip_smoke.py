@@ -6,7 +6,8 @@ Phases (any failure exits non-zero; nothing here catches its own error):
 
 1. Build the control-step kernel from ``add_gym_torch/csrc`` with nvcc;
    log ptxas's registers, stack and spills, and each variant's launch shape
-   (envs a block, dynamic shared memory a block, blocks resident per SM).
+   in each instance (``cuda_step.INSTANCES``: envs a block, dynamic shared
+   memory a block, blocks and envs resident per SM, registers).
 2. Kernel vs plain version on the card: the mini biped (N=256) and the
    G1-shaped fixture (N=4096 and the ragged N=4000), 4 control steps from
    states with ground contact and non-zero velocities; each step runs the
@@ -26,6 +27,11 @@ Phases (any failure exits non-zero; nothing here catches its own error):
    from states with the joints bent by 0.2 N(0, 1); the rows come from
    ``fused_step.compute_np_ext`` and the plain version is ``fused_step``
    with the tables.  Fails if every row is zero; logs the active pairs.
+   2d. The kernel's wide instance (48 body slots) on the G1 with Dex3-1
+   hands (``port_bench.inputs``' ``g1_dex3``: 44 bodies, 43 hinges, 13
+   levels): main and per-env variant at N=4096 and N=4000, then both with
+   narrowphase rows at N=4096, 4 control steps each against ``fused_step``
+   within the tolerances of phase 2.
 3. The rollout: ``build_env`` / ``build_agent`` from config ``train`` on the
    G1-shaped fixture and a synthetic clip, 4096 envs, the default agent
    (``fc_3layers_1024units``, bf16 mixed precision), 32-step
@@ -41,7 +47,8 @@ Phases (any failure exits non-zero; nothing here catches its own error):
    each N and the host's enqueue time per launch (below the kernel's, so
    the events time the kernel); and the time of ``compute_np_ext`` per
    control step (the cost outside the kernel), with its device op count
-   from ``torch.profiler``.
+   from ``torch.profiler``.  The same times, bound and bitwise check for
+   both variants of the wide instance on the G1 with Dex3-1 hands (4b).
 5. Training, config ``train`` (main variant): ``train_iter`` at 4096 envs
    x 32 steps, 5 epochs x 8 minibatches of 16,384, through the port
    bench's protocol (``add_gym_torch.bench.run_protocol``, ``bench.py``'s:
@@ -126,7 +133,13 @@ Phases (any failure exits non-zero; nothing here catches its own error):
    CPU FK of the same frames.  (d) ``python -m add_gym_torch.cli.probe``
    with its input from ``/dev/null``: exit 0 and ``bodies: 30  dofs: 29``.
    (e) ``python -m add_gym_torch.cli.publish`` on phase 10's checkpoint:
-   ``model.pt`` equals the checkpoint's parameters bit for bit.  (f) The
+   ``model.pt`` equals the checkpoint's parameters bit for bit.  (g) The
+   training CLI (``cli.train.main`` in this process, config ``train``) on
+   the G1 with Dex3-1 hands and a clip in its 43-joint order, 4096 envs,
+   2 iterations, no evaluation: exactly 2 x 32 main-variant launches, all
+   of them of the wide instance (``cuda_step.wide_launches``), each a
+   replay of the env step's CUDA graph but the warm-up step's; finite
+   metrics.  (f) The
    native loader builds with g++ and its CSV and STL readers equal the
    numpy ones exactly on the fixture clip and STLs.  The three CLIs run as
    subprocesses started together, alongside (a) and (f), and are waited
@@ -170,6 +183,7 @@ from add_gym_torch import bench
 from add_gym_torch.bench import card_line, reset_counts, split_iteration, time_ms
 from add_gym_torch.builder import build_agent, build_env
 from add_gym_torch.cli.train import main as cli_main
+from add_gym_torch.envs.imitation import ImitationEnv
 from add_gym_torch.learning.normalizer import NormState
 from add_gym_torch.learning.optim import SGDState
 from add_gym_torch.parallel.mesh import EnvShard
@@ -206,6 +220,8 @@ SHARD_ENVS = (2048, 1024)  # phase 9: per-rank shapes of 2 and 4 ranks at 4096 e
 SWEEP_ENVS = (1024, 2048, 4096, 8192)  # phase 4: ms per launch of the main variant
 DESIGN = ("warp per env, lane per body; 4 envs a 128-thread block; per-env scratch in "
           "shared memory; tree passes level by level")
+DESIGN_WIDE = ("warp per env, lanes 0-11 with two bodies past 32; 48 body slots, 2 envs a "
+               "64-thread block; per-env scratch in shared memory; tree passes level by level")
 CLI_EVAL_LEN = 0.5        # phase 10: episode cap of the run (50 control steps)
 SUBPROCESS_TIMEOUT = 300
 DR_TIMED = 2
@@ -355,6 +371,34 @@ def phase_np_kernel_vs_plain(g1_path):
                 + " ".join(f"{k}={v:.3e}" for k, v in errs_all.items()))
             for k, v in errs_all.items():
                 worst[per][k] = max(worst[per].get(k, 0.0), v)
+    return worst
+
+
+def phase_hands_kernel_vs_plain(dex3_path):
+    """Phase 2d: the wide instance on the G1 with Dex3-1 hands against the
+    plain step, main and per-env, with and without narrowphase rows."""
+    worst = {}
+    for per, geoms, n in ((False, False, NUM_ENVS), (False, False, 4000), (True, False, NUM_ENVS),
+                          (True, False, 4000), (False, True, NUM_ENVS), (True, True, NUM_ENVS)):
+        model, fc, params = model_setup(dex3_path, "g1", geoms=geoms)
+        if cs.instance(model.nb) != cs.INSTANCES[-1]:
+            raise AssertionError(f"{model.nb} bodies go to the {cs.instance(model.nb)}-body instance")
+        if per:
+            params = per_env(params, n, seed=n + 5)
+        state, cmd = bent_state(model, n, seed=n + 6)
+        dt = params.ctrl_dt / params.substeps
+        errs_all = {}
+        for _ in range(MAIN_COMPARE_STEPS):
+            np_ext = compute_np_ext(fc, params, dt, state) if geoms else None
+            state, errs = compare_step(fc, params, state, cmd, np_ext)
+            for k, v in errs.items():
+                errs_all[k] = max(errs_all.get(k, 0.0), v)
+        log(f"[phase 2d] {'per-env' if per else 'main'} variant"
+            f"{' with narrowphase rows' if geoms else ''}, g1_dex3 N={n} nb={model.nb} "
+            f"nd={model.nd} points={model.ncp} levels={cs.tree_tables(model.parent)[0].max()}: "
+            "max abs err " + " ".join(f"{k}={v:.3e}" for k, v in errs_all.items()))
+        for k, v in errs_all.items():
+            worst[k] = max(worst.get(k, 0.0), v)
     return worst
 
 
@@ -1244,6 +1288,40 @@ def phase_video(mesh_path, g1_path, clip_path):
                 view_frames=int(want.shape[0]))
 
 
+def phase_hands_cli(dex3_path, dex3_clip):
+    """Phase 14g: ``cli.train`` on the G1 with Dex3-1 hands, 2 iterations
+    at 4096 envs, in this process: every launch of the wide instance."""
+    from port_bench import inputs
+
+    logs = os.path.join(ROOT, "build", "add_gym_torch", "smoke_logs_dex3")
+    args = ["train", f"robot.asset_path={dex3_path}", f"task.motion_file={dex3_clip}",
+            f"task.motion_joint_order={list(inputs.G1_DEX3_MOTION_JOINT_ORDER)!r}",
+            f"engine.num_envs={NUM_ENVS}",
+            "test_episodes=0", f"log_dir={logs}", "experiment_name=dex3", "max_iters=2",
+            "device=cuda"]
+    reset_counts()
+    cs.cuda_step.wide_launches = 0
+    f = ImitationEnv.rollout_step_cached
+    replays0 = f.replays
+    t0 = time.perf_counter()
+    cli_main(args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = (cs.cuda_step.launches, cs.cuda_step.dr_launches, cs.cuda_step.wide_launches)
+    if counts != (2 * STEPS, 0, 2 * STEPS):
+        raise AssertionError(f"phase 14g: launches (main, per-env, wide) {counts}, expected "
+                             f"{(2 * STEPS, 0, 2 * STEPS)}")
+    replays = f.replays - replays0
+    with open(os.path.join(logs, "dex3", "metrics.jsonl")) as fh:
+        rows = [json.loads(line) for line in fh]
+    if len(rows) != 2 or not all(math.isfinite(r["loss"]) for r in rows):
+        raise AssertionError(f"phase 14g: metrics.jsonl rows {rows}")
+    log(f"[phase 14g] cli.train on g1_dex3 at {NUM_ENVS} envs, 2 iterations in {seconds:.1f} s: "
+        f"launches (main, per-env, wide) {counts}, graph replays {replays}; iteration 2 "
+        f"{rows[1]['env_steps_per_s']:.1f} env-steps/s")
+    return dict(launches=counts[2], replays=replays, rate=rows[1]["env_steps_per_s"])
+
+
 def compare_kernel(other_dir) -> int:
     """This checkout's kernel against the one in ``other_dir`` (another
     checkout), main variant, the same 4096-env input, timed in turns."""
@@ -1301,20 +1379,26 @@ def main() -> int:
     for line in build["log"].splitlines():
         if any(w in line for w in ("entry function", "registers", "spill", "stack", "smem")):
             log(f"[phase 1] ptxas: {line.strip()}")
-    for per in (False, True):
-        log(f"[phase 1] {'per-env' if per else 'main'} variant launch shape: "
-            f"{cs.kernel_info(per)}")
+    for cap in cs.INSTANCES:
+        for per in (False, True):
+            log(f"[phase 1] {cap}-body instance, {'per-env' if per else 'main'} variant launch "
+                f"shape: {cs.kernel_info(per, cap)}")
+
+    from port_bench import inputs
 
     mini_path = fx.write_mini_mjcf(FIXTURES)
     g1_path, clip_path = fx.write_slice_files(FIXTURES)
+    dex3_path, dex3_clip = inputs.write_inputs(FIXTURES, clip_seed=0, name="g1_dex3")
 
     worst = phase_kernel_vs_plain(mini_path, g1_path)
     worst_dr = phase_dr_kernel_vs_plain(g1_path)
     worst_np = phase_np_kernel_vs_plain(g1_path)
+    worst_wide = phase_hands_kernel_vs_plain(dex3_path)
     phase_small_slice_check(g1_path, clip_path)
     env_steps_per_s = phase_slice(g1_path, clip_path)
     times = {"main": phase_times(g1_path, False), "dr": phase_times(g1_path, True),
-             "np": phase_times(g1_path, False, geoms=True)}
+             "np": phase_times(g1_path, False, geoms=True),
+             "wide": phase_times(dex3_path, False), "wide_dr": phase_times(dex3_path, True)}
     np_ext = times["np"][4]
     sweep = phase_sweep(g1_path)
     train = phase_train(g1_path, clip_path)
@@ -1327,12 +1411,14 @@ def main() -> int:
     amp = phase_train_amp(g1_path, clip_path)
     ppo = phase_train_ppo(g1_path, clip_path)
     video = phase_video(fx.write_mesh_fixture(FIXTURES), g1_path, clip_path)
+    hands = phase_hands_cli(dex3_path, dex3_clip)
 
     entries = []
     for name, key, launches, errs, replaces in (
         ("control_step", "main", train["launches"], worst, 74),
         ("control_step_dr", "dr", train_dr["launches"], worst_dr, 74),
         ("control_step_np", "np", train_np["launches"], worst_np[False], 88),
+        ("control_step_wide", "wide", hands["launches"], worst_wide, 74),
     ):
         kernel_ms, plain_ms, bound_ms, bound_by = times[key][:4]
         entries.append({
@@ -1347,7 +1433,7 @@ def main() -> int:
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": None,
-            "design": DESIGN,
+            "design": DESIGN_WIDE if key == "wide" else DESIGN,
         })
     kernel_ms, plain_ms, bound_ms, bound_by = shard_times[SHARD_ENVS[0]]
     entries.append({
@@ -1387,6 +1473,8 @@ def main() -> int:
         "amp_train_iter_ms": amp["total_ms"], "amp_train_peak_device_bytes": amp["peak_bytes"],
         "ppo256_train_env_steps_per_s": ppo["ppo256"], "ppo_train_env_steps_per_s": ppo["ppo"],
         "sgd_variable_train_env_steps_per_s": ppo["sgd_variable"],
+        "wide_dr_ms_per_launch": times["wide_dr"][0], "wide_dr_bound_ms": times["wide_dr"][2],
+        "dex3_cli_env_steps_per_s": hands["rate"],
         "smoke_seconds": time.perf_counter() - T_START,
         "num_envs": NUM_ENVS, "steps_per_iter": STEPS,
     }))

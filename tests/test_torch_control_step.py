@@ -11,8 +11,10 @@
   runs it with a warp per env; the host runs it with a team of 1 lane and
   with 32 lanes emulated one after another (``AgtHostTeam``), and the two
   must agree bit for bit, main and per-env, with and without narrowphase
-  rows.  A 32-body model (the kernel's most) by the 32-lane team matches
-  the plain step too.
+  rows.  A 32-body model (the narrow instance's most) by the 32-lane team
+  matches the plain step too; so does the wide instance (48 body slots,
+  64-bit child masks) on the G1 with Dex3-1 hands (44 bodies), by teams
+  of 1 and 32, main and per-env; past 48 bodies a model is refused.
 * The per-env variant (domain randomization: per-env ``kp``/``kv``
   ``[N, nd]``, friction ``[N]`` and mass scale ``[N]`` in [0.5, 2.0]): the
   plain step against the Pallas kernel body with ``use_ms`` (interpret
@@ -61,6 +63,7 @@ from add_gym_torch.physics.engine import EngineParams, SimState
 from add_gym_torch.physics.fused_step import FusedModelConstants, fused_step
 from add_gym_torch.physics.model import build_physics_model
 from add_gym_torch.robot import build_pd_gains
+from port_bench.inputs import write_g1_dex3_fixture
 
 torch.set_num_threads(2)
 
@@ -97,6 +100,13 @@ def mini(tmp_path_factory):
 @pytest.fixture(scope="module")
 def g1(tmp_path_factory):
     return _setup(fx.write_g1_fixture(str(tmp_path_factory.mktemp("g1"))), g1=True)
+
+
+@pytest.fixture(scope="module")
+def g1_dex3(tmp_path_factory):
+    """The G1 with Dex3-1 hands (the benchmark's topology stand-in: 44
+    bodies, 43 hinges, 13 levels), with the JAX fused step as for the G1."""
+    return _setup(write_g1_dex3_fixture(str(tmp_path_factory.mktemp("dex3"))), g1=True)
 
 
 def _scenario(model, n, kind, height):
@@ -175,11 +185,36 @@ def test_g1_fixture_step_matches_jax_fused(g1, kind):
         assert (np.asarray(j_contact) > 0).any()
 
 
-@pytest.mark.parametrize("which", ["mini", "g1"])
-def test_per_env_step_matches_jax(mini, g1, which):
+@pytest.mark.parametrize("variant", ["main", "per_env"])
+@pytest.mark.parametrize("kind", SCENARIOS)
+def test_g1_dex3_step_matches_jax_fused(host_kernel, g1_dex3, kind, variant):
+    """The G1 with Dex3-1 hands (44 bodies, 13 levels, 360 ground points)
+    against the JAX fused step: the plain step, and the kernel's wide
+    instance built for the host by teams of 1 and 32 lanes, main and
+    per-env variant."""
+    model, fc, tp, jp, jstep, _ = g1_dex3
+    n = 8
+    fields, cmd = _scenario(model, n, kind, height=fx.G1_PELVIS_HEIGHT)
+    if variant == "per_env":
+        tp, jp = _per_env_params(tp, jp, n, seed=12)
+    ts, js = _both_states(fields)
+    j_state, j_contact = jstep(jp, js, jnp.asarray(cmd))
+    cmd = torch.as_tensor(cmd)
+    _assert_step_close(*fused_step(fc, tp, ts, cmd), j_state, j_contact)
+    for team in (1, 32):
+        _assert_step_close(*_host_step(host_kernel, fc, tp, ts, cmd, team=team), j_state, j_contact)
+    if kind == "free_fall":
+        assert not np.asarray(j_contact).any()
+    elif kind == "ground_contact":
+        assert (np.asarray(j_contact) > 0).any()
+
+
+@pytest.mark.parametrize("which", ["mini", "g1", "g1_dex3"])
+def test_per_env_step_matches_jax(request, which):
     """Mini biped: the Pallas kernel body with ``use_ms``; G1-shaped
-    fixture: JAX ``fused_step``.  Both with per-env params, in contact."""
-    model, fc, tp, jp, jstep, _ = mini if which == "mini" else g1
+    fixture and the G1 with Dex3-1 hands: JAX ``fused_step``.  All with
+    per-env params, in contact."""
+    model, fc, tp, jp, jstep, _ = request.getfixturevalue(which)
     n = 16 if which == "mini" else 8
     height = 0.6 if which == "mini" else fx.G1_PELVIS_HEIGHT
     fields, cmd = _scenario(model, n, "ground_contact", height)
@@ -315,24 +350,36 @@ def test_build_env_refuses_missing_cuda(tmp_path):
 
 _SHIM = r"""
 #include "control_step.cuh"
-// the per-env step over all n envs by a host team of kTeam lanes
-template <bool kPerEnv, int kTeam>
+// the per-env step over all n envs by a host team of kTeam lanes, with the
+// scratch of the kernel's instance of body capacity kCap
+template <bool kPerEnv, int kTeam, int kCap>
 static void run(const float* f, const int* ib, int nb, int nd, int ncp, int nsph, int npair,
                 int substeps, int n_np, const float* in, float* out, int n) {
   AgtModel m{f, ib, nb, nd, ncp, nsph, npair, substeps, n_np};
-  AgtEnvScratch s;
+  AgtEnvScratch<kCap> s;
   for (int e = 0; e < n; ++e) agt_control_step_env<kPerEnv>(AgtHostTeam<kTeam>(), m, s, in, out, n, e);
 }
-#define AGT_ENTRY(name, per_env, team)                                                        \
+#define AGT_ENTRY(name, per_env, team, cap)                                                   \
   extern "C" void name(const float* f, const int* ib, int nb, int nd, int ncp, int nsph,     \
                        int npair, int substeps, int n_np, const float* in, float* out, int n) { \
-    run<per_env, team>(f, ib, nb, nd, ncp, nsph, npair, substeps, n_np, in, out, n);          \
+    run<per_env, team, cap>(f, ib, nb, nd, ncp, nsph, npair, substeps, n_np, in, out, n);     \
   }
-AGT_ENTRY(agt_control_step_host, false, 1)
-AGT_ENTRY(agt_control_step_dr_host, true, 1)
-AGT_ENTRY(agt_control_step_host32, false, 32)
-AGT_ENTRY(agt_control_step_dr_host32, true, 32)
+AGT_ENTRY(agt_control_step_host, false, 1, 32)
+AGT_ENTRY(agt_control_step_dr_host, true, 1, 32)
+AGT_ENTRY(agt_control_step_host32, false, 32, 32)
+AGT_ENTRY(agt_control_step_dr_host32, true, 32, 32)
+AGT_ENTRY(agt_control_step_host_w48, false, 1, 48)
+AGT_ENTRY(agt_control_step_dr_host_w48, true, 1, 48)
+AGT_ENTRY(agt_control_step_host32_w48, false, 32, 48)
+AGT_ENTRY(agt_control_step_dr_host32_w48, true, 32, 48)
 """
+
+# the shim's entry points: (per-env variant, team size, body capacity)
+_HOST_ENTRIES = {
+    (per_env, team, cap): "agt_control_step" + ("_dr" if per_env else "") + "_host"
+    + ("32" if team == 32 else "") + ("" if cap == 32 else f"_w{cap}")
+    for per_env in (False, True) for team in (1, 32) for cap in cs.INSTANCES
+}
 
 
 @pytest.fixture(scope="module")
@@ -350,8 +397,8 @@ def host_kernel(tmp_path_factory):
         check=True, capture_output=True,
     )
     lib = ctypes.CDLL(str(lib_path))
-    for fn in (lib.agt_control_step_host, lib.agt_control_step_dr_host,
-               lib.agt_control_step_host32, lib.agt_control_step_dr_host32):
+    for name in _HOST_ENTRIES.values():
+        fn = getattr(lib, name)
         fn.restype = None
         fn.argtypes = (
             [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2 + [ctypes.c_int]
@@ -361,11 +408,12 @@ def host_kernel(tmp_path_factory):
 
 def _host_out(host_kernel, fc, params, inp, per_env, team=1):
     """The output block of one control step by the device function built
-    for the host, stepped by a host team of ``team`` lanes (1 or 32)."""
+    for the host, stepped by a host team of ``team`` lanes (1 or 32) with
+    the scratch of the instance ``cuda_step`` picks for the model."""
     n = inp.shape[1]
     fbuf, ibuf, counts = cs.pack_model(fc, params, per_env)
     out = torch.empty((13 + 3 * fc.nd + fc.nb, n))
-    name = "agt_control_step" + ("_dr" if per_env else "") + "_host" + ("32" if team == 32 else "")
+    name = _HOST_ENTRIES[(bool(per_env), team, cs.instance(fc.nb))]
     getattr(host_kernel, name)(fbuf.ctypes.data, ibuf.ctypes.data, *counts, inp.data_ptr(),
                                out.data_ptr(), n)
     return out
@@ -455,16 +503,21 @@ def test_per_env_variant_with_shared_values_is_the_main_variant(host_kernel, g1)
     assert torch.equal(a_contact, b_contact) and (a_contact > 0).any()
 
 
+NP_BODIES = dict(mini=[0, 2], g1=[0, 4, 9, 17, 23, 29], g1_dex3=[0, 4, 9, 17, 23, 29, 33, 43])
+
+
 @pytest.mark.parametrize("rows", ["no_np", "np"])
 @pytest.mark.parametrize("variant", ["main", "per_env"])
-@pytest.mark.parametrize("which", ["mini", "g1"])
-def test_team_sizes_agree_bitwise(host_kernel, mini, g1, which, variant, rows):
-    """The step by a host team of 32 lanes (each phase run for lanes 0..31
+@pytest.mark.parametrize("which", ["mini", "g1", "g1_dex3"])
+def test_team_sizes_agree_bitwise(host_kernel, request, which, variant, rows):
+    """The step by a host team of 32 lanes (each phase run for lanes 31..0
     in turn) gives the bits of a team of 1, over 3 chained steps at N = 37:
     every phase's items are independent and every sum across lanes runs in
     a fixed order.  With ``np``, random held narrowphase rows on a few
-    bodies (the mini biped's 0 and 2, six bodies of the G1-shaped fixture)."""
-    model, fc, tp, jp = (mini if which == "mini" else g1)[:4]
+    bodies (the mini biped's 0 and 2, six bodies of the G1-shaped fixture,
+    eight of the G1 with Dex3-1 hands, two of them fingers past lane 31).
+    On the 44-body robot the wide instance runs, lanes 0-11 with two bodies."""
+    model, fc, tp, jp = request.getfixturevalue(which)[:4]
     height = 0.6 if which == "mini" else fx.G1_PELVIS_HEIGHT
     n = 37
     fields, cmd = _scenario(model, n, "ground_contact", height)
@@ -474,7 +527,7 @@ def test_team_sizes_agree_bitwise(host_kernel, mini, g1, which, variant, rows):
     extra = None
     if rows == "np":
         fc = FusedModelConstants(model)
-        fc.np_bodies = np.array([0, 2] if which == "mini" else [0, 4, 9, 17, 23, 29])
+        fc.np_bodies = np.array(NP_BODIES[which])
         extra = torch.as_tensor(np.random.default_rng(27).normal(
             0.0, 20.0, (6 * len(fc.np_bodies), n)).astype(np.float32))
     state = SimState(**{k: torch.as_tensor(v) for k, v in fields.items()})
@@ -490,12 +543,39 @@ def test_team_sizes_agree_bitwise(host_kernel, mini, g1, which, variant, rows):
         assert torch.isfinite(one).all() and (contact > 0).any()
 
 
+@pytest.mark.parametrize("team", [1, 32])
+@pytest.mark.parametrize("variant", ["main", "per_env"])
+@pytest.mark.parametrize("kind", ["ground_contact", "joint_limits"])
+def test_wide_instance_matches_plain_step(host_kernel, g1_dex3, kind, variant, team):
+    """The kernel's wide instance (48 body slots, 64-bit child masks), built
+    for the host, on the G1 with Dex3-1 hands (44 bodies, 13 levels) by a
+    team of 1 and of 32 lanes against the plain step, 3 chained steps at
+    N = 37, main and per-env variant."""
+    model, fc, tp, jp = g1_dex3[:4]
+    assert (model.nb, model.nd, cs.instance(model.nb)) == (44, 43, 48)
+    n = 37
+    fields, cmd = _scenario(model, n, kind, fx.G1_PELVIS_HEIGHT)
+    if variant == "per_env":
+        tp = _per_env_params(tp, jp, n, seed=28)[0]
+    state = SimState(**{k: torch.as_tensor(v) for k, v in fields.items()})
+    cmd = torch.as_tensor(cmd)
+    for _ in range(3):
+        k_state, k_contact = _host_step(host_kernel, fc, tp, state, cmd, team=team)
+        p_state, p_contact = fused_step(fc, tp, state, cmd)
+        _assert_step_close(k_state, k_contact, p_state, p_contact)
+        if kind == "ground_contact":
+            assert (p_contact > 0).any()
+        state = p_state
+
+
 def test_wide_model_device_function_matches_plain_step(host_kernel, tmp_path):
-    """A model of AGT_MAX_BODIES = 32 bodies (the G1-shaped fixture with two
-    hinged hands, tree depth 11) by a host team of 32 lanes against the
-    plain step, 2 chained steps."""
+    """A model of 32 bodies (the G1-shaped fixture with two hinged hands,
+    tree depth 11), the narrow instance's most, by a host team of 32 lanes
+    against the plain step, 2 chained steps.  Past it the wide instance
+    takes a model, up to its 48 bodies; 49 are refused, and the child
+    masks refuse a tree of more than 64 bodies."""
     model = build_physics_model(fx.write_wide_fixture(str(tmp_path), 2))
-    assert model.nb == 32
+    assert model.nb == 32 and cs.instance(model.nb) == 32
     fc = FusedModelConstants(model)
     tp = EngineParams(kp=torch.full((model.nd,), 50.0), kv=torch.full((model.nd,), 5.0))
     fields, cmd = _scenario(model, 37, "ground_contact", fx.G1_PELVIS_HEIGHT)
@@ -507,10 +587,14 @@ def test_wide_model_device_function_matches_plain_step(host_kernel, tmp_path):
         _assert_step_close(k_state, k_contact, p_state, p_contact)
         assert (p_contact > 0).any()
         state = p_state
-    wider = build_physics_model(fx.write_wide_fixture(str(tmp_path), 3))
-    with pytest.raises(ValueError, match="at most 32"):
-        cs.pack_model(FusedModelConstants(wider), EngineParams(
-            kp=torch.full((wider.nd,), 50.0), kv=torch.full((wider.nd,), 5.0)))
+    assert cs.instance(33) == cs.instance(48) == 48
+    with pytest.raises(ValueError, match="at most 48"):
+        cs.instance(49)
+    widest = build_physics_model(fx.write_wide_fixture(str(tmp_path), 35))
+    assert widest.nb == 65
+    with pytest.raises(ValueError, match="at most 64"):
+        cs.pack_model(FusedModelConstants(widest), EngineParams(
+            kp=torch.full((widest.nd,), 50.0), kv=torch.full((widest.nd,), 5.0)))
 
 
 def test_per_env_input_block_layout(g1):
@@ -542,7 +626,9 @@ def test_pack_model_layout(g1):
     nb, nd, ncp, nsph, npair, substeps, n_np = counts
     assert (nb, nd, ncp, substeps, n_np) == (model.nb, model.nd, model.ncp, 4, 0)
     assert fbuf.size == cs.HDR + nb * cs.BODY + nd * cs.DOF + ncp * cs.PT + nsph * cs.SPH + npair * cs.PAIR
-    assert ibuf.size == nb + (nb + 1) + nb + (nb + 1) + nsph + 2 * npair
+    # the child masks' bits 32-63 (nb words, zero for 30 bodies) after the pairs
+    assert ibuf.size == nb + (nb + 1) + nb + (nb + 1) + nsph + 2 * npair + nb
+    assert not ibuf[-nb:].any()
     # field-major: row k of the body section holds constant k of every body
     np.testing.assert_array_equal(fbuf[cs.HDR + 51 * nb: cs.HDR + 52 * nb], fc.mass)
     parent, depth = ibuf[:nb], ibuf[nb: 2 * nb + 1]
@@ -559,6 +645,26 @@ def test_pack_model_layout(g1):
     np.testing.assert_array_equal(kp, tp.kp.numpy())
     no_sc = cs.pack_model(fc, dataclasses.replace(tp, self_collision=False))[2]
     assert no_sc[4] == 0
+
+
+def test_pack_model_wide_masks(g1_dex3):
+    """The 44-body tree's child masks span both words: each body's bit in
+    its parent's 64-bit mask (bodies 32-43 in the high word), one bit a
+    body but the root, 13 levels (waist 3 + arm 7 + thumb 3)."""
+    model, fc, tp = g1_dex3[:3]
+    fbuf, ibuf, counts = cs.pack_model(fc, tp)
+    nb = counts[0]
+    assert nb == 44 and ibuf.size == nb + (nb + 1) + nb + (nb + 1) + counts[3] + 2 * counts[4] + nb
+    parent, depth = ibuf[:nb], ibuf[nb: 2 * nb + 1]
+    words = np.stack([ibuf[2 * nb + 1: 3 * nb + 1], ibuf[-nb:]]).view(np.uint32).astype(np.uint64)
+    masks = words[0] | words[1] << np.uint64(32)
+    assert depth[-1] == depth[:nb].max() == 13
+    for i in range(1, nb):
+        assert depth[i] == depth[parent[i]] + 1
+        assert int(masks[parent[i]]) >> i & 1
+    assert sum(bin(int(c)).count("1") for c in masks) == nb - 1
+    assert words[1].any()
+    np.testing.assert_array_equal(cs.tree_tables(parent)[1], masks)
 
 
 # ------------------------------------------------- held narrowphase rows

@@ -24,9 +24,11 @@ card matches FK on the CPU within 1e-5, and a one-rank ``Trainer`` with
 ``video_interval=1`` writes its pose dump (400 launches for the 4-s video).  The
 kernel steps each env by one warp: two launches on one input give the same
 bits for every instance; it matches the plain step at N = 1, 37, 4000 and
-4096 (less than a block, ragged, full); and a model of ``AGT_MAX_BODIES``
-= 32 bodies runs while 33 are refused.  A traced ``train_iter`` of
-``train`` and of ``dr_pod`` at 64 envs: no device row carries a program
+4096 (less than a block, ragged, full); a model of 32 bodies (the narrow
+instance's most) and the G1 with Dex3-1 hands (44 bodies, the wide
+instance: main, per-env, narrowphase rows, the graphed rollout, each
+counted in ``wide_launches``) run while 49 bodies are refused.  A traced
+``train_iter`` of ``train`` and of ``dr_pod`` at 64 envs: no device row carries a program
 span's name, and each kernel's launch row (the env step's graph launch)
 lies inside an ``env.graph`` span.  ``rollout_lean``'s env step as one
 CUDA graph (main variant, per-env with latency and mass, narrowphase
@@ -59,6 +61,7 @@ from add_gym_torch.physics.model import attach_geoms, build_physics_model
 from add_gym_torch.robot import build_pd_gains
 from add_gym_torch.utils import trace
 from add_gym_torch.utils.config import load_config
+from port_bench import inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -68,9 +71,11 @@ def paths(tmp_path_factory):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     d = str(tmp_path_factory.mktemp("cuda"))
+    g1_dex3, dex3_clip = inputs.write_inputs(d, clip_seed=0, name="g1_dex3")
     return dict(
         mini=fx.write_mini_mjcf(d), g1=fx.write_g1_fixture(d), mesh=fx.write_mesh_fixture(d),
         clip=fx.write_motion_csv(d + "/clip.motion", seed=0, num_frames=120),
+        g1_dex3=g1_dex3, dex3_clip=dex3_clip,
     )
 
 
@@ -86,19 +91,22 @@ def _model(path, g1):
     return model, FusedModelConstants(model), params
 
 
-@pytest.mark.parametrize("which", ["mini", "g1"])
+@pytest.mark.parametrize("which", ["mini", "g1", "g1_dex3"])
 def test_kernel_matches_plain_step(paths, which):
-    model, fc, params = _model(paths[which], which == "g1")
-    height = fx.G1_PELVIS_HEIGHT if which == "g1" else 0.6
+    """The main variant; on the G1 with Dex3-1 hands (44 bodies) its wide
+    instance, counted in ``wide_launches``."""
+    model, fc, params = _model(paths[which], which != "mini")
+    height = fx.G1_PELVIS_HEIGHT if which != "mini" else 0.6
     n = 1000                                        # a ragged last block
     fields, cmd = fx.random_sim_state(model, n, seed=11, height=height)
     state = SimState(**{k: torch.as_tensor(v, device="cuda") for k, v in fields.items()})
     cmd = torch.as_tensor(cmd, device="cuda")
-    before = cs.cuda_step.launches
+    before, wide = cs.cuda_step.launches, cs.cuda_step.wide_launches
     k_state, k_contact = cs.cuda_step(fc, params, state, cmd)
     p_state, p_contact = fused_step(fc, params, state, cmd)
     torch.cuda.synchronize()
     assert cs.cuda_step.launches == before + 1
+    assert cs.cuda_step.wide_launches == wide + (which == "g1_dex3")
     assert k_contact.shape == (n, model.nb) and k_contact.is_cuda
     assert (p_contact > 0).any()
     for f, tol in fx.step_tolerances().items():
@@ -107,10 +115,10 @@ def test_kernel_matches_plain_step(paths, which):
         torch.testing.assert_close(got, want, **tol, msg=lambda m: f"{f}: {m}")
 
 
-@pytest.mark.parametrize("which", ["mini", "g1"])
+@pytest.mark.parametrize("which", ["mini", "g1", "g1_dex3"])
 def test_per_env_kernel_matches_plain_step(paths, which):
-    model, fc, params = _model(paths[which], which == "g1")
-    height = fx.G1_PELVIS_HEIGHT if which == "g1" else 0.6
+    model, fc, params = _model(paths[which], which != "mini")
+    height = fx.G1_PELVIS_HEIGHT if which != "mini" else 0.6
     n = 1000
     fields, cmd = fx.random_sim_state(model, n, seed=12, height=height)
     pe = fx.per_env_params(params.kp.cpu().numpy(), params.kv.cpu().numpy(), n, seed=13)
@@ -119,10 +127,12 @@ def test_per_env_kernel_matches_plain_step(paths, which):
     state = SimState(**{k: torch.as_tensor(v, device="cuda") for k, v in fields.items()})
     cmd = torch.as_tensor(cmd, device="cuda")
     before, before_dr = cs.cuda_step.launches, cs.cuda_step.dr_launches
+    wide = cs.cuda_step.wide_launches
     k_state, k_contact = cs.cuda_step(fc, params, state, cmd)
     p_state, p_contact = fused_step(fc, params, state, cmd)
     torch.cuda.synchronize()
     assert (cs.cuda_step.launches, cs.cuda_step.dr_launches) == (before, before_dr + 1)
+    assert cs.cuda_step.wide_launches == wide + (which == "g1_dex3")
     assert (p_contact > 0).any()
     for f, tol in fx.step_tolerances().items():
         got = k_contact if f == "contact" else getattr(k_state, f)
@@ -155,13 +165,15 @@ def test_kernel_matches_plain_step_at_n(paths, n):
         assert (p_contact > 0).any()
 
 
-@pytest.mark.parametrize("instance", ["main", "per_env", "np", "np_per_env", "sharded"])
+@pytest.mark.parametrize("instance", ["main", "per_env", "np", "np_per_env", "sharded",
+                                      "wide", "wide_per_env"])
 def test_two_launches_are_bitwise_equal(paths, instance):
     """Every sum across a warp's lanes runs in a fixed order (no atomics):
-    two launches on one input block give the same bits, 4096 envs."""
+    two launches on one input block give the same bits, 4096 envs; ``wide``
+    on the G1 with Dex3-1 hands."""
     n = 4096
     geoms = instance.startswith("np")
-    model, fc, params = _model(paths["g1"], True)
+    model, fc, params = _model(paths["g1_dex3" if instance.startswith("wide") else "g1"], True)
     if geoms:
         model = attach_geoms(model, paths["g1"])
         fc = FusedModelConstants(model)
@@ -189,22 +201,28 @@ def test_two_launches_are_bitwise_equal(paths, instance):
 
 
 def test_kernel_at_max_bodies(paths, tmp_path):
-    """A model of AGT_MAX_BODIES = 32 bodies (the G1-shaped fixture with two
-    hinged hands) launches and matches the plain step; 33 are refused."""
-    for extra in (2, 3):
-        model = build_physics_model(fx.write_wide_fixture(str(tmp_path), extra))
+    """A model of 32 bodies (the G1-shaped fixture with two hinged hands),
+    the narrow instance's most, and the G1 with Dex3-1 hands (44 bodies)
+    through the wide instance launch and match the plain step; a model of
+    49 bodies, past the wide instance's 48, is refused."""
+    for path in (fx.write_wide_fixture(str(tmp_path), 2), paths["g1_dex3"],
+                 fx.write_wide_fixture(str(tmp_path), 19)):
+        model = build_physics_model(path)
         params = EngineParams(kp=torch.full((model.nd,), 50.0, device="cuda"),
                               kv=torch.full((model.nd,), 5.0, device="cuda"))
         fc = FusedModelConstants(model)
         fields, cmd = fx.random_sim_state(model, 1000, seed=22, height=fx.G1_PELVIS_HEIGHT)
         state = SimState(**{k: torch.as_tensor(v, device="cuda") for k, v in fields.items()})
         cmd = torch.as_tensor(cmd, device="cuda")
-        if model.nb > 32:
-            with pytest.raises(ValueError, match="at most 32"):
+        if model.nb > 48:
+            assert model.nb == 49
+            with pytest.raises(ValueError, match="at most 48"):
                 cs.cuda_step(fc, params, state, cmd)
             continue
-        assert model.nb == 32
+        assert model.nb in (32, 44)
+        wide = cs.cuda_step.wide_launches
         k_state, k_contact = cs.cuda_step(fc, params, state, cmd)
+        assert cs.cuda_step.wide_launches == wide + (model.nb > 32)
         assert (_assert_matches_plain(fc, params, state, cmd, k_state, k_contact) > 0).any()
 
 
@@ -219,12 +237,14 @@ def _bent(model, n, seed):
     return state, torch.as_tensor(cmd, device="cuda")
 
 
+@pytest.mark.parametrize("which", ["g1", "g1_dex3"])
 @pytest.mark.parametrize("per_env", [False, True], ids=["main", "per_env"])
-def test_np_kernel_matches_plain_step(paths, per_env):
+def test_np_kernel_matches_plain_step(paths, per_env, which):
     """The kernel with its held narrowphase rows at 256 envs, main and
-    per-env variant, against ``fused_step`` with the geom tables."""
-    model, fc, params = _model(paths["g1"], True)
-    model = attach_geoms(model, paths["g1"])
+    per-env variant, against ``fused_step`` with the geom tables; on the G1
+    with Dex3-1 hands through the wide instance."""
+    model, fc, params = _model(paths[which], True)
+    model = attach_geoms(model, paths[which])
     fc = FusedModelConstants(model)
     n = 256
     if per_env:
@@ -543,7 +563,9 @@ def test_trainer_video_interval_on_card(paths, tmp_path):
 
 GRAPH_VARIANTS = dict(main=("train", [], "launches"),
                       per_env=("dr_pod", [], "dr_launches"),
-                      np=("train", ["engine.general_narrowphase=true"], "np_launches"))
+                      np=("train", ["engine.general_narrowphase=true"], "np_launches"),
+                      wide=("train", [], "wide_launches"),
+                      wide_per_env=("dr_pod", [], "wide_launches"))
 
 
 def _graph_case(paths, variant, n, steps):
@@ -551,6 +573,10 @@ def _graph_case(paths, variant, n, steps):
     cfg = load_config(config, overrides)
     cfg["robot"]["asset_path"] = paths["g1"]
     cfg["task"]["motion_file"] = paths["clip"]
+    if variant.startswith("wide"):          # the G1 with Dex3-1 hands: 44 bodies
+        cfg["robot"]["asset_path"] = paths["g1_dex3"]
+        cfg["task"]["motion_file"] = paths["dex3_clip"]
+        cfg["task"]["motion_joint_order"] = list(inputs.G1_DEX3_MOTION_JOINT_ORDER)
     cfg["engine"]["num_envs"] = n
     cfg["agent"]["steps_per_iter"] = steps
     for k in ("actor_net", "critic_net", "disc_net"):
@@ -580,7 +606,8 @@ def test_graphed_rollout_matches_eager_bitwise(paths, variant, monkeypatch):
     """Two chained ``rollout_lean`` of 8 steps at 64 envs, with forced
     resets, in the env's graph scope and with a null scope in its place, on
     the same draws: the main kernel variant (``train``), the per-env one
-    with latency and mass (``dr_pod``) and the narrowphase rows.  Every
+    with latency and mass (``dr_pod``), the narrowphase rows, and the wide
+    instance in both variants on the G1 with Dex3-1 hands.  Every
     traj field, the final ``EnvState``, obs and obs statistics are equal
     bit for bit; the kernel's launch counter advances by the steps either
     way; the graph is captured once a rollout and replayed at every step;
